@@ -1,0 +1,467 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives ``registrar_tpu_torch`` through its main path and checks every
+result; any failed check raises and the script exits non-zero.  There is
+no CPU fallback: without a CUDA device it exits with status 1 before
+printing any result.
+
+Phases:
+
+1. device: the card's name, and its name and power limit as nvidia-smi
+   reports them;
+2. model: the harness MLP built from a seeded generator on the card
+   serves 8 seeded (32, 64) batches plus the ``ones`` input of
+   ``entry()``; each bf16 output is held against the float32
+   ``forward_reference`` on the card, and the bf16 forward is timed with
+   CUDA events;
+3. registration: ``register_plus`` registers the deployment shape of
+   ``etc/config.example.json`` against a ZooKeeper, heartbeats, is taken
+   down and back up by a flipping health check, and its session closes;
+   the tree is compared with the data contract (docs/CONTRACT.md) at
+   every stage;
+4. fleet scale: 1000 ephemerals on one session, swept by
+   ``heartbeat_many`` as 100 services x 10 znodes;
+5. kernels: the repository has no Pallas kernel, so the port has no
+   hand-written kernel to build or check: ``{"kernels": []}``.
+
+The last line of standard output is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Timings name the card, its power limit and the host CPU beside them:
+phases 3 and 4 are host work.
+"""
+
+import asyncio
+import json
+import os
+import platform
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: bf16 output vs the float32 reference: two bf16 ulps relative plus an
+#: absolute term of about 2**-8 of the products' summed magnitude.
+RTOL = 2.0**-6
+ATOL = 1e-3
+
+#: Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet,
+#: dense): HBM bytes per second and bf16 tensor-core operations per second.
+H100_BYTES_PER_S = 3.35e12
+H100_BF16_FLOPS = 989e12
+
+SEED = 0
+N_REQUESTS = 8
+TIMED_LAUNCHES = 200
+WARMUP_LAUNCHES = 20
+
+#: The deployment shape of etc/config.example.json.
+DOMAIN = "myservice.us-east.example.com"
+ALIAS = "alias-1.myservice.us-east.example.com"
+HOSTNAME = "smokehost"
+REGISTRATION = {
+    "domain": DOMAIN,
+    "type": "load_balancer",
+    "aliases": [ALIAS],
+    "ttl": 30,
+    "ports": [80, 443],
+    "service": {
+        "type": "service",
+        "service": {"srvce": "_http", "proto": "_tcp", "port": 80, "ttl": 60},
+    },
+}
+ADMIN_IP = "10.0.0.17"
+
+#: Expected znodes, written from docs/CONTRACT.md: (path, payload, kind).
+SERVICE_PATH = "/com/example/us-east/myservice"
+HOST_PAYLOAD = (
+    b'{"type":"load_balancer","address":"10.0.0.17","ttl":30,'
+    b'"load_balancer":{"address":"10.0.0.17","ports":[80,443]}}'
+)
+SERVICE_PAYLOAD = (
+    b'{"type":"service","service":{"type":"service",'
+    b'"service":{"srvce":"_http","proto":"_tcp","port":80,"ttl":60}}}'
+)
+PARENTS = [
+    ("/com", b"", "persistent"),
+    ("/com/example", b"", "persistent"),
+    ("/com/example/us-east", b"", "persistent"),
+]
+REGISTERED_TREE = PARENTS + [
+    (SERVICE_PATH, SERVICE_PAYLOAD, "persistent"),
+    (SERVICE_PATH + "/alias-1", HOST_PAYLOAD, "ephemeral"),
+    (SERVICE_PATH + "/" + HOSTNAME, HOST_PAYLOAD, "ephemeral"),
+]
+OWNED_ZNODES = [
+    SERVICE_PATH + "/" + HOSTNAME,
+    SERVICE_PATH + "/alias-1",
+    SERVICE_PATH,
+]
+
+FLEET_SERVICES, FLEET_NODES_PER_SERVICE = 100, 10
+MULTI_CHUNK = 500
+FLEET_SWEEPS = 5
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeError(what)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, or its vendor, family and model numbers
+    where the name is masked; with the count of cores this process sees."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, sep, value = line.partition(":")
+                if not sep:
+                    break  # the first processor's block is enough
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = info.get("model name", "unknown")
+    if name == "unknown" and "cpu family" in info:
+        name = (f"{info.get('vendor_id', '?')} family {info['cpu family']} "
+                f"model {info.get('model', '?')}")
+    if name == "unknown":
+        name = platform.machine()
+    return f"{name}, {os.cpu_count()} cores"
+
+
+# --- phase 1 -----------------------------------------------------------------
+
+
+def phase_device() -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"device: {name}", flush=True)
+    print(smi, flush=True)
+    return {"card": name, "nvidia_smi": smi, "host_cpu": host_cpu()}
+
+
+# --- phase 2 -----------------------------------------------------------------
+
+
+def _close_enough(y: torch.Tensor, ref: torch.Tensor) -> float:
+    from registrar_tpu_torch.graft_entry import BATCH, DOUT
+
+    check(tuple(y.shape) == (BATCH, DOUT), f"output shape {tuple(y.shape)}")
+    check(y.dtype == torch.bfloat16, f"output dtype {y.dtype}")
+    check(bool(torch.isfinite(y).all()), "non-finite output")
+    err = (y.float() - ref).abs()
+    bound = RTOL * ref.abs() + ATOL
+    check(bool((err <= bound).all()), f"bf16 forward off the fp32 reference by {err.max().item()}")
+    return err.max().item()
+
+
+def _time_ms(fn) -> list:
+    """Per-launch times of ``fn`` on the card, one pair of CUDA events
+    around each launch, after a warm-up."""
+    for _ in range(WARMUP_LAUNCHES):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_LAUNCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return times
+
+
+def phase_model(where: dict) -> None:
+    from registrar_tpu_torch.graft_entry import (
+        BATCH, DHID, DIN, DOUT, MLP, entry, forward_reference, init_params,
+    )
+
+    dev = torch.device("cuda")
+    model = MLP(init_params(torch.Generator(device=dev).manual_seed(SEED)))
+    check(model.w1.device.type == "cuda", "model weights are not on the card")
+    errs = []
+    with torch.inference_mode():
+        for i in range(N_REQUESTS):
+            rng = np.random.default_rng(SEED + 1 + i)
+            x = torch.from_numpy(
+                rng.standard_normal((BATCH, DIN)).astype(np.float32)
+            ).to(dev, torch.bfloat16)
+            errs.append(_close_enough(model(x), forward_reference(model.params(), x)))
+        fn, (params, ones) = entry()
+        check(ones.device.type == "cuda", "entry() did not default to the card")
+        errs.append(_close_enough(fn(params, ones), forward_reference(params, ones)))
+
+        forward_ms = _time_ms(lambda: model(ones))
+        reference_ms = _time_ms(lambda: forward_reference(params, ones))
+    # The least time the card could take for the forward: each input and
+    # the output moved once, or the products at the bf16 peak.
+    moved = 2 * (BATCH * DIN + DIN * DHID + DHID * DOUT + BATCH * DOUT)
+    flops = 2 * BATCH * DHID * (DIN + DOUT)
+    bound_ms = max(moved / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+    emit({
+        "phase": "model",
+        "requests": N_REQUESTS + 1,
+        "max_abs_err": max(errs),
+        "rtol": RTOL, "atol": ATOL,
+        "forward_ms_median": statistics.median(forward_ms),
+        "forward_ms_min": min(forward_ms),
+        "fp32_reference_ms_median": statistics.median(reference_ms),
+        "bytes": moved,
+        "operations": flops,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if moved / H100_BYTES_PER_S > flops / H100_BF16_FLOPS
+        else "operations",
+        "launches_timed": TIMED_LAUNCHES,
+        **where,
+    })
+
+
+# --- phase 3 and 4: a ZooKeeper stand-in in a child process -----------------
+
+
+class ZooKeeperChild:
+    """The hermetic ZooKeeper server, as a separate process reached only
+    over TCP.  The port's client runs against the reference package's
+    test server (``registrar_tpu.testing.server``) until that server is
+    itself ported; this script never imports it."""
+
+    def __init__(self) -> None:
+        self.proc = None
+        self.lines = []
+        self.port = None
+
+    def __enter__(self) -> "ZooKeeperChild":
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "registrar_tpu.testing.server",
+             "--host", "127.0.0.1", "--port", "0"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )
+        found = threading.Event()
+
+        def drain() -> None:
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip())
+                if self.port is None and "listening on" in line:
+                    self.port = int(line.rsplit(":", 1)[1])
+                    found.set()
+            found.set()
+
+        self._drain = threading.Thread(target=drain, daemon=True)
+        self._drain.start()
+        found.wait(timeout=60)
+        if self.port is None:
+            self.__exit__(None, None, None)
+            raise SmokeError(
+                "ZooKeeper child did not start: " + " | ".join(self.lines[-20:])
+            )
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+        self._drain.join(timeout=10)
+
+
+async def dump_tree(client, owner: int, path: str) -> list:
+    """(path, payload, kind) of every znode from ``path`` down."""
+    stat = await client.exists(path)
+    if stat is None:
+        return []
+    data, st = await client.get(path)
+    kind = (
+        "ephemeral" if st.ephemeral_owner == owner
+        else "persistent" if st.ephemeral_owner == 0
+        else "foreign"
+    )
+    out = [(path, bytes(data), kind)]
+    for child in sorted(await client.get_children(path)):
+        out += await dump_tree(client, owner, path.rstrip("/") + "/" + child)
+    return out
+
+
+async def phase_registration(port: int, where: dict) -> None:
+    from registrar_tpu_torch import register_plus
+    from registrar_tpu_torch.zk.client import ZKClient
+
+    servers = [("127.0.0.1", port)]
+    observer = await ZKClient(servers).connect()
+    client = await ZKClient(servers).connect()
+    owner = client.session_id
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            flag = os.path.join(tmp, "healthy")
+            open(flag, "w").close()
+            t0 = time.perf_counter()
+            ee = register_plus(
+                client, REGISTRATION, admin_ip=ADMIN_IP, hostname=HOSTNAME,
+                heartbeat_interval=0.2,
+                health_check={
+                    "command": f"test -f {flag}",
+                    "interval": 0.1,
+                    "timeout": 5.0,
+                    "threshold": 2,
+                },
+            )
+            errors = []
+            ee.on("error", errors.append)
+            beats = []
+            ee.on("heartbeat", beats.append)
+            try:
+                (znodes,) = await ee.wait_for("register", timeout=30)
+                register_s = time.perf_counter() - t0
+                check(znodes == OWNED_ZNODES, f"owned znodes {znodes}")
+                tree = await dump_tree(observer, owner, "/com")
+                check(tree == REGISTERED_TREE, f"registered tree {tree}")
+
+                while len(beats) < 3:
+                    await ee.wait_for("heartbeat", timeout=30)
+                check(all(b == OWNED_ZNODES for b in beats), "heartbeat znodes")
+
+                t1 = time.perf_counter()
+                os.unlink(flag)
+                (_err, deleted) = await ee.wait_for("unregister", timeout=30)
+                down_s = time.perf_counter() - t1
+                check(deleted == OWNED_ZNODES, f"deregistered {deleted}")
+                tree = await dump_tree(observer, owner, "/com")
+                check(tree == PARENTS, f"tree while down {tree}")
+
+                t2 = time.perf_counter()
+                open(flag, "w").close()
+                (znodes,) = await ee.wait_for("register", timeout=30)
+                up_s = time.perf_counter() - t2
+                check(znodes == OWNED_ZNODES, f"re-registered {znodes}")
+                tree = await dump_tree(observer, owner, "/com")
+                check(tree == REGISTERED_TREE, f"tree after recovery {tree}")
+                check(not errors, f"agent errors {errors!r}")
+            finally:
+                ee.stop()
+        await client.close()
+        tree = await dump_tree(observer, owner, "/com")
+        check(
+            tree == PARENTS + [(SERVICE_PATH, SERVICE_PAYLOAD, "persistent")],
+            f"tree after the session closed {tree}",
+        )
+    finally:
+        await client.close()
+        await observer.close()
+    emit({
+        "phase": "registration",
+        "znodes": len(OWNED_ZNODES),
+        "heartbeats": len(beats),
+        "register_s": register_s,
+        "health_down_to_unregistered_s": down_s,
+        "health_up_to_registered_s": up_s,
+        **where,
+    })
+
+
+async def phase_fleet(port: int, where: dict) -> None:
+    from registrar_tpu_torch.zk.client import Op, OwnershipError, ZKClient
+    from registrar_tpu_torch.zk.protocol import CreateFlag
+
+    servers = [("127.0.0.1", port)]
+    client = await ZKClient(servers).connect()
+    other = await ZKClient(servers).connect()
+    try:
+        services = [f"/fleet/svc-{i:03d}" for i in range(FLEET_SERVICES)]
+        groups = [
+            [f"{svc}/node-{j:02d}" for j in range(FLEET_NODES_PER_SERVICE)]
+            for svc in services
+        ]
+        await client.multi(
+            [Op.create("/fleet")] + [Op.create(svc) for svc in services]
+        )
+        ephemerals = [n for g in groups for n in g]
+        t0 = time.perf_counter()
+        for i in range(0, len(ephemerals), MULTI_CHUNK):
+            await client.multi([
+                Op.create(n, b"{}", flags=CreateFlag.EPHEMERAL)
+                for n in ephemerals[i:i + MULTI_CHUNK]
+            ])
+        create_s = time.perf_counter() - t0
+
+        sweeps = []
+        for _ in range(FLEET_SWEEPS):
+            t = time.perf_counter()
+            outcomes = await client.heartbeat_many(groups)
+            sweeps.append((time.perf_counter() - t) * 1e3)
+            check(outcomes == [None] * FLEET_SERVICES,
+                  f"unowned probes: {[o for o in outcomes if o is not None][:3]}")
+        # The ownership check is live: another session's node is refused.
+        await other.create("/fleet/foreign", b"{}", flags=CreateFlag.EPHEMERAL)
+        (foreign,) = await client.heartbeat_many([["/fleet/foreign"]])
+        check(isinstance(foreign, OwnershipError), f"foreign probe gave {foreign!r}")
+    finally:
+        await other.close()
+        await client.close()
+    emit({
+        "phase": "fleet",
+        "ephemerals": len(ephemerals),
+        "multi_chunk": MULTI_CHUNK,
+        "create_s": create_s,
+        "sweep": f"{FLEET_SERVICES} services x {FLEET_NODES_PER_SERVICE} znodes",
+        "sweep_ms_median": statistics.median(sweeps),
+        "sweep_ms": sweeps,
+        **where,
+    })
+
+
+async def host_phases(port: int, where: dict) -> None:
+    await phase_registration(port, where)
+    await phase_fleet(port, where)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 1
+    # Fails here, before any result, outside a checkout of the repository.
+    import registrar_tpu_torch  # noqa: F401
+
+    where = phase_device()
+    phase_model(where)
+    with ZooKeeperChild() as zk:
+        asyncio.run(host_phases(zk.port, where))
+    print(json.dumps({"kernels": []}), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,174 @@
+"""The port stands alone: it never reaches ``registrar_tpu`` or JAX.
+
+Every reference module imports its siblings by absolute path and names
+its logger with a string literal, and the package's lazy export map
+holds module paths as strings; a copied file that missed one of these
+would silently run the reference.  These tests import the whole port in
+a fresh interpreter and scan its source, and that of ``chip_smoke.py``,
+for any such reference.  They also pin that ``chip_smoke.py`` has no
+CPU fallback.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "registrar_tpu_torch")
+REF = os.path.join(REPO, "registrar_tpu")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+
+FORBIDDEN_ROOTS = {"registrar_tpu", "jax", "jaxlib"}
+
+#: the one reference module chip_smoke.py names: the ZooKeeper stand-in
+#: it starts as a child process (never imported)
+SMOKE_CHILD_MODULE = "registrar_tpu.testing.server"
+
+
+def port_files():
+    out = []
+    for dirpath, _, files in os.walk(PORT):
+        out += [
+            os.path.relpath(os.path.join(dirpath, f), REPO)
+            for f in files
+            if f.endswith(".py")
+        ]
+    return sorted(out)
+
+
+def port_modules():
+    mods = []
+    for rel in port_files():
+        mod = rel[:-3].replace(os.sep, ".")
+        mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    return mods
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN_ROOTS
+
+
+def test_port_has_every_module_of_the_slice():
+    assert set(port_modules()) == {
+        "registrar_tpu_torch",
+        "registrar_tpu_torch.malformed",
+        "registrar_tpu_torch.events",
+        "registrar_tpu_torch.retry",
+        "registrar_tpu_torch.trace",
+        "registrar_tpu_torch.records",
+        "registrar_tpu_torch.registration",
+        "registrar_tpu_torch.health",
+        "registrar_tpu_torch.reconcile",
+        "registrar_tpu_torch.agent",
+        "registrar_tpu_torch.graft_entry",
+        "registrar_tpu_torch.zk",
+        "registrar_tpu_torch.zk.jute",
+        "registrar_tpu_torch.zk.framing",
+        "registrar_tpu_torch.zk.protocol",
+        "registrar_tpu_torch.zk.client",
+    }
+
+
+@pytest.mark.parametrize("rel", [f for f in port_files() if "graft_entry" not in f])
+def test_module_keeps_its_reference_counterpart(rel):
+    counterpart = os.path.join(REF, os.path.relpath(os.path.join(REPO, rel), PORT))
+    assert os.path.isfile(counterpart), rel
+
+
+def test_fresh_interpreter_import_leaves_no_reference_or_jax():
+    script = (
+        "import importlib, json, sys\n"
+        f"mods = {port_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "pkg = sys.modules['registrar_tpu_torch']\n"
+        "exports = {n: m for n, m in pkg._EXPORTS.items()\n"
+        "           if getattr(pkg, n) is getattr(sys.modules[m], n)}\n"
+        "print(json.dumps({'modules': sorted(sys.modules), 'exports': exports}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.splitlines()[-1])
+    leaked = [m for m in result["modules"] if _forbidden(m)]
+    assert leaked == []
+    assert set(port_modules()) <= set(result["modules"])
+    assert len(result["exports"]) == 15
+    for name, module in result["exports"].items():
+        assert module.startswith("registrar_tpu_torch."), (name, module)
+
+
+def _scan(path: str):
+    """(imports, string constants, getLogger names) of one source file."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    imports, strings, loggers = [], [], []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imports += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            imports.append(node.module)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            strings.append(node.value)
+        if (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", None) == "getLogger"
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            loggers.append(node.args[0].value)
+    return imports, strings, loggers
+
+
+def _names_reference_module(s: str) -> bool:
+    return s == "registrar_tpu" or s.startswith("registrar_tpu.")
+
+
+@pytest.mark.parametrize("rel", port_files())
+def test_port_source_names_no_reference_module(rel):
+    imports, strings, loggers = _scan(os.path.join(REPO, rel))
+    assert [i for i in imports if _forbidden(i)] == []
+    # the lazy export map and any other module path held as a string
+    assert [s for s in strings if _names_reference_module(s)] == []
+    assert all(name.startswith("registrar_tpu_torch.") for name in loggers), loggers
+
+
+def test_chip_smoke_imports_neither_reference_nor_jax():
+    imports, strings, _ = _scan(SMOKE)
+    assert [i for i in imports if _forbidden(i)] == []
+    assert {i.split(".")[0] for i in imports} <= {
+        "registrar_tpu_torch", "torch", "numpy", *sys.stdlib_module_names
+    }
+    assert [s for s in strings if _names_reference_module(s)] == [
+        SMOKE_CHILD_MODULE
+    ]
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, os.path.join(cwd, "chip_smoke.py")], cwd=cwd,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_chip_smoke_has_no_cpu_fallback():
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert '"kernels"' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    proc = _run_smoke(str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
