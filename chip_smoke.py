@@ -23,25 +23,38 @@ Phases:
    every stage;
 4. fleet scale: 1000 ephemerals on one session, swept by
    ``heartbeat_many`` as 100 services x 10 znodes;
-5. kernels: the repository has no Pallas kernel, so the port has no
+5. daemon: ``python3 -m registrar_tpu_torch -f cfg.json`` with the
+   deployment shape of ``etc/config.example.json`` (its registration,
+   adminIp and tuning; heartbeat 0.2 s, a ``test -f <flag>`` health check
+   every 0.1 s with threshold 2) against the same ZooKeeper: the
+   ``-n`` pre-flight (0, and 78 for a broken registration), a cold start
+   (tree, bunyan lines, ``/metrics``, ``/status``), a health flip, a
+   SIGTERM that deletes the ephemerals at once, and a handoff restart in
+   which a successor resumes the same session while an observer polling
+   every 10 ms sees no NO_NODE;
+6. kernels: the repository has no Pallas kernel, so the port has no
    hand-written kernel to build or check: ``{"kernels": []}``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Timings name the card, its power limit and the host CPU beside them:
-phases 3 and 4 are host work.
+phases 3 to 5 are host work.
 """
 
 import asyncio
+import copy
 import json
 import os
 import platform
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -105,6 +118,11 @@ OWNED_ZNODES = [
     SERVICE_PATH + "/alias-1",
     SERVICE_PATH,
 ]
+
+#: the daemon's exit status for a rejected config (BSD sysexits)
+EX_CONFIG = 78
+#: the observer's poll period while it watches the daemon's znodes
+POLL_S = 0.01
 
 FLEET_SERVICES, FLEET_NODES_PER_SERVICE = 100, 10
 MULTI_CHUNK = 500
@@ -434,9 +452,321 @@ async def phase_fleet(port: int, where: dict) -> None:
     })
 
 
+# --- phase 5: the daemon ----------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def daemon_config(zk_port: int, flag: str, metrics_port: int) -> dict:
+    """etc/config.example.json pointed at the child ZooKeeper: the same
+    registration, adminIp and tuning, the smoke's heartbeat and health
+    check, its own metrics port and trace dump path, and no serve, cache,
+    chroot or restart block."""
+    with open(os.path.join(ROOT, "etc", "config.example.json")) as fh:
+        cfg = json.load(fh)
+    reg = dict(cfg["registration"])
+    reg.pop("heartbeatInterval")
+    check(reg == REGISTRATION, f"etc/config.example.json registration {reg}")
+    check(cfg["adminIp"] == ADMIN_IP, f"adminIp {cfg['adminIp']}")
+    for key in ("serve", "cache", "restart"):
+        cfg.pop(key)
+    cfg["observability"]["dumpPath"] = os.path.join(
+        os.path.dirname(flag), "trace-dump.json")
+    cfg["zookeeper"].pop("chroot")
+    cfg["zookeeper"]["servers"] = [{"host": "127.0.0.1", "port": zk_port}]
+    cfg["registration"]["heartbeatInterval"] = 200
+    cfg["healthCheck"] = {
+        "command": f"test -f {flag}", "interval": 100, "timeout": 1000,
+        "threshold": 2,
+    }
+    cfg["metrics"] = {"host": "127.0.0.1", "port": metrics_port}
+    cfg["logLevel"] = "info"
+    return cfg
+
+
+def write_json(path: str, obj) -> str:
+    with open(path, "w") as fh:
+        json.dump(obj, fh)
+    return path
+
+
+class Daemon:
+    """``python3 -m registrar_tpu_torch -f <cfg>`` as a child process, its
+    standard output gathered line by line."""
+
+    def __init__(self, cfg_path: str) -> None:
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "registrar_tpu_torch", "-f", cfg_path],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        self.lines = []
+        self.errors = []
+        self._drains = [
+            threading.Thread(target=self._drain, args=(pipe, sink), daemon=True)
+            for pipe, sink in ((self.proc.stdout, self.lines),
+                               (self.proc.stderr, self.errors))
+        ]
+        for t in self._drains:
+            t.start()
+
+    @staticmethod
+    def _drain(pipe, sink) -> None:
+        for line in pipe:
+            sink.append(line.rstrip("\n"))
+
+    def records(self) -> list:
+        """Every stdout line, each of which must be one bunyan object."""
+        out = []
+        for line in list(self.lines):
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                raise SmokeError(f"daemon stdout line is not JSON: {line!r}")
+            check(isinstance(rec, dict) and rec.get("name") == "registrar"
+                  and isinstance(rec.get("level"), int) and "msg" in rec,
+                  f"daemon stdout line is not a bunyan record: {line!r}")
+            out.append(rec)
+        return out
+
+    async def wait_msg(self, msg: str, timeout: float = 30) -> float:
+        """Seconds from spawn until a line whose ``msg`` starts with
+        ``msg`` is logged."""
+        deadline = time.perf_counter() + timeout
+        while not any(r["msg"].startswith(msg) for r in self.records()):
+            ended = not any(t.is_alive() for t in self._drains)
+            check(not ended and time.perf_counter() < deadline,
+                  f"daemon never logged {msg!r}: {self.tail()}")
+            await asyncio.sleep(POLL_S)
+        return time.perf_counter() - self.t0
+
+    async def signal_and_wait(self, sig, timeout: float = 30) -> int:
+        self.proc.send_signal(sig)
+        return await asyncio.to_thread(self.proc.wait, timeout)
+
+    def tail(self) -> str:
+        return " | ".join((self.lines + self.errors)[-20:])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+        for t in self._drains:
+            t.join(timeout=10)
+
+
+async def wait_until(fn, what: str, timeout: float = 30):
+    """Poll ``fn`` every POLL_S until it returns a true value."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        value = await fn()
+        if value:
+            return value
+        check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+        await asyncio.sleep(POLL_S)
+
+
+def http_get(port: int, path: str) -> str:
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{port}{path}", timeout=10
+    ) as resp:
+        check(resp.status == 200, f"GET {path} answered {resp.status}")
+        return resp.read().decode()
+
+
+class Poller:
+    """A resolver's view: ``exists`` on one znode every POLL_S, counting
+    the NO_NODE answers and the owners seen."""
+
+    def __init__(self, client, path: str) -> None:
+        self.client, self.path = client, path
+        self.checks = self.misses = 0
+        self.owners = set()
+        self._stop = asyncio.Event()
+        self._task = asyncio.create_task(self._loop())
+
+    async def _loop(self) -> None:
+        while not self._stop.is_set():
+            st = await self.client.exists(self.path)
+            self.checks += 1
+            if st is None:
+                self.misses += 1
+            else:
+                self.owners.add(st.ephemeral_owner)
+            await asyncio.sleep(POLL_S)
+
+    async def stop(self) -> None:
+        self._stop.set()
+        await self._task
+
+
+def preflight(cfg_path: str, broken_path: str) -> None:
+    def run(path):
+        return subprocess.run(
+            [sys.executable, "-m", "registrar_tpu_torch", "-f", path, "-n"],
+            cwd=ROOT, capture_output=True, text=True, timeout=60,
+        )
+
+    ok = run(cfg_path)
+    check(ok.returncode == 0, f"-n on the config exited {ok.returncode}: "
+          f"{ok.stdout} {ok.stderr}")
+    check('"msg":"configuration OK"' in ok.stdout, f"-n said {ok.stdout!r}")
+    bad = run(broken_path)
+    check(bad.returncode == EX_CONFIG,
+          f"-n on a broken registration exited {bad.returncode}, not "
+          f"{EX_CONFIG}: {bad.stdout} {bad.stderr}")
+
+
+async def phase_daemon(port: int, where: dict) -> None:
+    from registrar_tpu_torch.zk.client import ZKClient
+
+    hostname = socket.gethostname()
+    host_path = SERVICE_PATH + "/" + hostname
+    alias_path = SERVICE_PATH + "/alias-1"
+    registered = PARENTS + [
+        (SERVICE_PATH, SERVICE_PAYLOAD, "persistent"),
+        (alias_path, HOST_PAYLOAD, "ephemeral"),
+        (host_path, HOST_PAYLOAD, "ephemeral"),
+    ]
+    # A health deregister deletes the childless service node too; a closed
+    # session leaves it (phase 3 holds register_plus to the same trees).
+    down = PARENTS
+    closed = PARENTS + [(SERVICE_PATH, SERVICE_PAYLOAD, "persistent")]
+    owned = [host_path, alias_path, SERVICE_PATH]
+
+    observer = await ZKClient([("127.0.0.1", port)]).connect()
+    daemons = []
+
+    async def owner_of(path):
+        st = await observer.exists(path)
+        return st.ephemeral_owner if st is not None else None
+
+    async def tree_is(expected, owner):
+        return await dump_tree(observer, owner, "/com") == expected
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            flag = os.path.join(tmp, "healthy")
+            open(flag, "w").close()
+            metrics_port = free_port()
+            cfg = daemon_config(port, flag, metrics_port)
+            cfg_path = write_json(os.path.join(tmp, "config.json"), cfg)
+            broken = copy.deepcopy(cfg)
+            del broken["registration"]["type"]
+            preflight(cfg_path, write_json(os.path.join(tmp, "broken.json"), broken))
+
+            # cold start
+            d = Daemon(cfg_path)
+            daemons.append(d)
+            owner = await wait_until(lambda: owner_of(host_path), "the host znode")
+            register_s = time.perf_counter() - d.t0
+            await wait_until(lambda: tree_is(registered, owner),
+                             "the registered tree")
+            await d.wait_msg("registrar: registered")
+            records = d.records()
+            components = {r["component"] for r in records}
+            check("registrar" in components, f"components {components}")
+            modules = components - {"registrar"}
+            check(modules and all(c.startswith("registrar_tpu_torch.")
+                                  for c in modules), f"components {components}")
+            metrics = await asyncio.to_thread(http_get, metrics_port, "/metrics")
+            for series in ("registrar_registrations_total 1",
+                           "registrar_zk_connected 1"):
+                check(f"\n{series}\n" in f"\n{metrics}",
+                      f"/metrics lacks {series!r}")
+            status = json.loads(
+                await asyncio.to_thread(http_get, metrics_port, "/status"))
+            check(status["session"]["id"] == f"0x{owner:x}",
+                  f"/status session {status['session']}")
+            check([z["path"] for z in status["registration"]["znodes"]] == owned,
+                  f"/status znodes {status['registration']}")
+            check(status["health"]["configured"] and not status["health"]["down"],
+                  f"/status health {status['health']}")
+
+            # health flip through the daemon
+            t = time.perf_counter()
+            os.unlink(flag)
+            await wait_until(lambda: tree_is(down, owner), "health deregister")
+            health_down_s = time.perf_counter() - t
+            t = time.perf_counter()
+            open(flag, "w").close()
+            await wait_until(lambda: tree_is(registered, owner),
+                             "health re-register")
+            health_up_s = time.perf_counter() - t
+
+            # SIGTERM without a restart block: the session closes
+            d.proc.send_signal(signal.SIGTERM)
+            t = time.perf_counter()
+
+            async def gone():
+                return await owner_of(host_path) is None
+
+            await wait_until(gone, "the host znode to go on SIGTERM")
+            sigterm_to_gone_s = time.perf_counter() - t
+            rc = await asyncio.to_thread(d.proc.wait, 30)
+            check(rc == 0, f"daemon exited {rc} on SIGTERM: {d.tail()}")
+            check(await tree_is(closed, owner), "tree after SIGTERM")
+            await d.wait_msg("registrar: shutting down")
+            log_lines = len(d.records())
+
+            # handoff restart
+            cfg["restart"] = {"stateFile": os.path.join(tmp, "state.json"),
+                              "mode": "handoff", "drainGraceSeconds": 0}
+            write_json(cfg_path, cfg)
+            pred = Daemon(cfg_path)
+            daemons.append(pred)
+            sid0 = await wait_until(lambda: owner_of(host_path),
+                                    "the host znode (handoff)")
+            await wait_until(lambda: tree_is(registered, sid0),
+                             "the registered tree (handoff)")
+            poller = Poller(observer, host_path)
+            rc = await pred.signal_and_wait(signal.SIGTERM)
+            check(rc == 0, f"handoff predecessor exited {rc}: {pred.tail()}")
+            await pred.wait_msg(
+                "restart: session handed off; ephemerals remain live for "
+                "the successor")
+            check(await tree_is(registered, sid0),
+                  "the ephemerals did not stay up after the handoff")
+            succ = Daemon(cfg_path)
+            daemons.append(succ)
+            handoff_resume_s = await succ.wait_msg(
+                "resumed registration verified in place")
+            await asyncio.sleep(0.5)  # heartbeats of the successor
+            await poller.stop()
+            check(poller.checks > 20, f"only {poller.checks} polls")
+            check(poller.misses == 0,
+                  f"{poller.misses}/{poller.checks} polls saw NO_NODE")
+            check(poller.owners == {sid0}, f"owners {poller.owners}")
+            check(await tree_is(registered, sid0), "tree after the handoff")
+            check(succ.proc.poll() is None, f"successor died: {succ.tail()}")
+            rc = await succ.signal_and_wait(signal.SIGTERM)
+            check(rc == 0, f"successor exited {rc}: {succ.tail()}")
+    finally:
+        for d in daemons:
+            d.stop()
+        await observer.close()
+    emit({
+        "phase": "daemon",
+        "daemon_register_s": register_s,
+        "health_down_to_unregistered_s": health_down_s,
+        "health_up_to_registered_s": health_up_s,
+        "sigterm_to_gone_s": sigterm_to_gone_s,
+        "handoff_no_node_polls": poller.misses,
+        "handoff_polls": poller.checks,
+        "handoff_resume_s": handoff_resume_s,
+        "log_lines_cold_run": log_lines,
+        **where,
+    })
+
+
 async def host_phases(port: int, where: dict) -> None:
     await phase_registration(port, where)
     await phase_fleet(port, where)
+    await phase_daemon(port, where)
 
 
 def main() -> int:

@@ -14,6 +14,13 @@ copy.  The ZooKeeper data contract is byte-for-byte the reference's
 
 Layer map:
 
+    __main__.py      ``python3 -m registrar_tpu_torch -f config.json``
+    main.py          the daemon: config, logs, connect, signals, restart
+    config.py        config file parsing and validation
+    jlog.py          bunyan JSON log lines on stdout
+    statefile.py     on-disk session handoff state for restarts
+    metrics.py       Prometheus /metrics, /status and /debug/trace
+    traceview.py     trace assembly for /debug/trace?id=
     agent.py         register_plus orchestrator
     registration.py  znode registration pipeline
     health.py        periodic command health checker
@@ -29,7 +36,7 @@ __version__ = "1.0.0"
 
 # Flat re-export surface, lazy so that subsets of the package can be
 # imported without pulling in the whole stack.  Only ported modules are
-# listed; the metrics, serve-path and cache exports arrive with them.
+# listed; the serve-path and cache exports arrive with them.
 _EXPORTS = {
     "register_plus": "registrar_tpu_torch.agent",
     "RegistrarEvents": "registrar_tpu_torch.agent",
@@ -46,6 +53,10 @@ _EXPORTS = {
     "create_zk_client": "registrar_tpu_torch.zk.client",
     "Op": "registrar_tpu_torch.zk.client",
     "MultiError": "registrar_tpu_torch.zk.client",
+    "MetricsRegistry": "registrar_tpu_torch.metrics",
+    "MetricsServer": "registrar_tpu_torch.metrics",
+    "instrument": "registrar_tpu_torch.metrics",
+    "instrument_cache": "registrar_tpu_torch.metrics",
 }
 
 

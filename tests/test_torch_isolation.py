@@ -65,6 +65,13 @@ def test_port_has_every_module_of_the_slice():
         "registrar_tpu_torch.health",
         "registrar_tpu_torch.reconcile",
         "registrar_tpu_torch.agent",
+        "registrar_tpu_torch.config",
+        "registrar_tpu_torch.jlog",
+        "registrar_tpu_torch.statefile",
+        "registrar_tpu_torch.traceview",
+        "registrar_tpu_torch.metrics",
+        "registrar_tpu_torch.main",
+        "registrar_tpu_torch.__main__",
         "registrar_tpu_torch.graft_entry",
         "registrar_tpu_torch.zk",
         "registrar_tpu_torch.zk.jute",
@@ -101,7 +108,7 @@ def test_fresh_interpreter_import_leaves_no_reference_or_jax():
     leaked = [m for m in result["modules"] if _forbidden(m)]
     assert leaked == []
     assert set(port_modules()) <= set(result["modules"])
-    assert len(result["exports"]) == 15
+    assert len(result["exports"]) == 19
     for name, module in result["exports"].items():
         assert module.startswith("registrar_tpu_torch."), (name, module)
 
@@ -128,6 +135,10 @@ def _scan(path: str):
     return imports, strings, loggers
 
 
+#: the daemon's top-level bunyan ``component``; it names no module
+DAEMON_LOGGER = "registrar"
+
+
 def _names_reference_module(s: str) -> bool:
     return s == "registrar_tpu" or s.startswith("registrar_tpu.")
 
@@ -138,7 +149,47 @@ def test_port_source_names_no_reference_module(rel):
     assert [i for i in imports if _forbidden(i)] == []
     # the lazy export map and any other module path held as a string
     assert [s for s in strings if _names_reference_module(s)] == []
-    assert all(name.startswith("registrar_tpu_torch.") for name in loggers), loggers
+    assert all(
+        name.startswith("registrar_tpu_torch.") or name == DAEMON_LOGGER
+        for name in loggers
+    ), loggers
+
+
+def test_serve_tier_vocabularies_equal_the_reference():
+    """``metrics`` keeps its own copies of three constants of modules the
+    port has not yet (the shard tier and the DNS frontend)."""
+    from registrar_tpu import dnsfront, shard
+    from registrar_tpu_torch import metrics
+
+    assert metrics.SHED_REASONS == shard.SHED_REASONS
+    assert metrics.QTYPE_NAMES == dnsfront.QTYPE_NAMES
+    assert metrics.SERVED_QTYPES == dnsfront.SERVED_QTYPES
+
+
+def _imported_by(argv) -> tuple:
+    """(exit code, every module imported) of ``python3 -X importtime
+    <argv>`` in a fresh interpreter."""
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", *argv], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=60,
+    )
+    modules = {
+        line.rsplit("|", 1)[1].strip()
+        for line in proc.stderr.splitlines()[1:]  # below the header
+        if line.startswith("import time:")
+    }
+    return proc.returncode, modules
+
+
+@pytest.mark.parametrize("args", [["--version"], ["-n"]], ids=["version", "check"])
+def test_daemon_entry_point_loads_no_reference_jax_or_torch(args):
+    if args == ["-n"]:
+        args = ["-f", os.path.join(REPO, "etc", "config.example.json"), "-n"]
+    rc, modules = _imported_by(["-m", "registrar_tpu_torch", *args])
+    assert rc == 0
+    assert "registrar_tpu_torch.main" in modules
+    assert [m for m in modules if m.split(".")[0] in (*FORBIDDEN_ROOTS, "torch")] == []
 
 
 def test_chip_smoke_imports_neither_reference_nor_jax():

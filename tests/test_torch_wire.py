@@ -129,11 +129,52 @@ def _test_names(filename: str, only=None, exclude=(), calling=None):
     return [n for n in out if n not in exclude]
 
 
-def run_body(mod, qualname: str, fixtures: dict) -> None:
+def _body(mod, qualname: str):
     cls_name, _, fn_name = qualname.rpartition(".")
-    fn = getattr(getattr(mod, cls_name)(), fn_name) if cls_name else getattr(
+    return getattr(getattr(mod, cls_name)(), fn_name) if cls_name else getattr(
         mod, fn_name
     )
+
+
+def param_sets(fn) -> list:
+    """The arguments of every case of a body's ``pytest.mark.parametrize``
+    marks, one dict per case (one empty dict for an unparametrized body)."""
+    sets = [{}]
+    for mark in getattr(fn, "pytestmark", []):
+        if mark.name != "parametrize":
+            continue
+        names, values = mark.args[:2]
+        if isinstance(names, str):
+            names = [n.strip() for n in names.split(",")]
+        rows = [
+            v.values if isinstance(v, type(pytest.param())) else
+            tuple(v) if len(names) > 1 else (v,)
+            for v in values
+        ]
+        sets = [{**s, **dict(zip(names, r))} for s in sets for r in rows]
+    return sets
+
+
+def body_cases(filename: str, exclude=()) -> list:
+    """A ``pytest.param(filename, qualname, case)`` for every test body of
+    a reference file bound to the port, a parametrized body once per case."""
+    mod = load_test_module(filename, port=True)
+    out = []
+    for qualname in _test_names(filename, exclude=exclude):
+        n = len(param_sets(_body(mod, qualname)))
+        name = f"{filename[5:-3]}::{qualname}"
+        out += [
+            pytest.param(filename, qualname, case,
+                         id=f"{name}[{case}]" if n > 1 else name)
+            for case in range(n)
+        ]
+    return out
+
+
+def run_body(mod, qualname: str, fixtures: dict, case: int = 0) -> None:
+    """Run one case of one test body, with a 60 s limit on a coroutine."""
+    fn = _body(mod, qualname)
+    fixtures = {**fixtures, **param_sets(fn)[case]}
     kwargs = {
         name: fixtures[name] for name in inspect.signature(fn).parameters
     }
@@ -151,8 +192,6 @@ GOLDEN_BODIES = (
         for n in _test_names(
             "test_malformed.py",
             only={"TestJuteGoldens", "TestFramingGoldens", "TestTally"},
-            # needs the metrics module, which the port has not yet
-            exclude={"TestTally.test_counter_preseeded_and_wired"},
         )
     ]
 )
