@@ -32,13 +32,26 @@ Phases:
    SIGTERM that deletes the ephemerals at once, and a handoff restart in
    which a successor resumes the same session while an observer polling
    every 10 ms sees no NO_NODE;
-6. kernels: the repository has no Pallas kernel, so the port has no
+6. serve tier: ``python3 -m registrar_tpu_torch.tools.zkcli
+   serve-sharded -f tier.json`` with the ``serve`` and ``cache`` blocks
+   of ``etc/config.example.json`` (4 shards, ``attachSpread: spread``,
+   the overload knobs, a DNS frontend) over a Manta-style fleet of 16
+   service domains x 50 load balancers registered through
+   ``registration.register``: ``zkcli status``, every domain's A and
+   SRV answers over the unix socket (cached and live) held to
+   docs/CONTRACT.md, ``zkcli dig`` over UDP and TCP, a seeded Zipf
+   storm of 20 000 UDP queries (10 % NXDOMAIN) that must see no timeout
+   and no wrong answer, an unregister that the cached answer must drop,
+   a SIGHUP reshard to 5 shards under a polling resolver that must see
+   no error, a ``kill -9`` of one worker, and a SIGTERM that must leave
+   no worker behind;
+7. kernels: the repository has no Pallas kernel, so the port has no
    hand-written kernel to build or check: ``{"kernels": []}``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Timings name the card, its power limit and the host CPU beside them:
-phases 3 to 5 are host work.
+phases 3 to 6 are host work.
 """
 
 import asyncio
@@ -46,6 +59,7 @@ import copy
 import json
 import os
 import platform
+import re
 import signal
 import socket
 import statistics
@@ -309,18 +323,25 @@ class ZooKeeperChild:
 
 
 async def dump_tree(client, owner: int, path: str) -> list:
-    """(path, payload, kind) of every znode from ``path`` down."""
-    stat = await client.exists(path)
-    if stat is None:
-        return []
-    data, st = await client.get(path)
+    """(path, payload, kind) of every znode from ``path`` down.  A znode
+    deleted while the walk reads it (a deregistration racing the poll)
+    is left out, as the next poll would find it."""
+    from registrar_tpu_torch.zk.protocol import Err, ZKError
+
+    try:
+        data, st = await client.get(path)
+        children = sorted(await client.get_children(path))
+    except ZKError as err:
+        if err.code == Err.NO_NODE:
+            return []
+        raise
     kind = (
         "ephemeral" if st.ephemeral_owner == owner
         else "persistent" if st.ephemeral_owner == 0
         else "foreign"
     )
     out = [(path, bytes(data), kind)]
-    for child in sorted(await client.get_children(path)):
+    for child in children:
         out += await dump_tree(client, owner, path.rstrip("/") + "/" + child)
     return out
 
@@ -495,13 +516,15 @@ def write_json(path: str, obj) -> str:
 
 
 class Daemon:
-    """``python3 -m registrar_tpu_torch -f <cfg>`` as a child process, its
-    standard output gathered line by line."""
+    """``python3 -m registrar_tpu_torch -f <cfg>`` (or the interpreter
+    arguments ``argv``) as a child process, its standard output and
+    error gathered line by line."""
 
-    def __init__(self, cfg_path: str) -> None:
+    def __init__(self, cfg_path: str, argv=None) -> None:
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "registrar_tpu_torch", "-f", cfg_path],
+            [sys.executable,
+             *(argv or ["-m", "registrar_tpu_torch", "-f", cfg_path])],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         self.lines = []
@@ -763,10 +786,609 @@ async def phase_daemon(port: int, where: dict) -> None:
     })
 
 
+# --- phase 6: the serve tier ------------------------------------------------
+
+#: A Manta-style fleet: 16 service domains of 50 load balancers each, in
+#: the registration shape of etc/config.example.json.
+SERVE_SUFFIX = "manta.us-east.example.com"
+SERVE_DOMAINS, SERVE_INSTANCES = 16, 50
+SERVE_PORTS = [80, 443]
+#: the shard counts of the tier before and after the reshard step
+SHARDS, RESHARDS = 4, 5
+#: the seeded DNS storm: Zipf over the domains' A names, 10 % NXDOMAIN
+STORM_QUERIES = 20_000
+STORM_NX_SHARE = 0.10
+STORM_NX_NAMES = 64
+STORM_ZIPF_S = 1.1
+STORM_SOCKETS = 16
+STORM_WINDOW = 4
+STORM_TIMEOUT_S = 2.0
+#: the tier's answer TTLs, from docs/CONTRACT.md: a service A answer is
+#: min(SRV-chain TTL, host TTL), SRV answers carry the service's ttl
+A_TTL, SRV_TTL = 30, 60
+
+
+def serve_domains() -> list:
+    """16 domain names that cover every slice of both the 4-shard and
+    the 5-shard ring, so that every worker carries traffic before and
+    after the reshard: coverage first, then the next names in order."""
+    from registrar_tpu_torch.shard import HashRing
+
+    rings = [HashRing(range(SHARDS)), HashRing(range(RESHARDS))]
+    names = [f"{k}.{SERVE_SUFFIX}" for k in range(1, 257)]
+    chosen, covered = [], set()
+    for name in names:
+        slots = {(len(r.shard_ids), r.owner(name)) for r in rings}
+        if not slots <= covered:
+            chosen.append(name)
+            covered |= slots
+    check(len(covered) == SHARDS + RESHARDS, f"ring slots covered: {covered}")
+    chosen += [n for n in names if n not in chosen][:SERVE_DOMAINS - len(chosen)]
+    check(len(chosen) == SERVE_DOMAINS, f"{len(chosen)} domains")
+    return sorted(chosen, key=names.index)
+
+
+def instance_address(d: int, i: int) -> str:
+    return f"10.{100 + d}.0.{10 + i}"
+
+
+def expected_a(domain: str, addresses) -> list:
+    return sorted((domain, "A", A_TTL, a) for a in addresses)
+
+
+def expected_srv(domain: str, hosts: dict) -> tuple:
+    """(answers, additionals) of ``_http._tcp.<domain>`` for the
+    instances in ``hosts`` (hostname -> address), from docs/CONTRACT.md:
+    one SRV per port per instance, one A additional per instance."""
+    answers = sorted(
+        (f"_http._tcp.{domain}", "SRV", SRV_TTL, f"0 10 {p} {h}.{domain}.")
+        for h in hosts for p in SERVE_PORTS
+    )
+    additionals = sorted((f"{h}.{domain}", "A", A_TTL, a) for h, a in hosts.items())
+    return answers, additionals
+
+
+def rows(answers) -> list:
+    return sorted((a.name, a.rtype, a.ttl, a.data) for a in answers)
+
+
+def tier_config(zk_port: int, tmp: str, metrics_port: int, dns_port: int) -> dict:
+    """etc/config.example.json's ``serve`` and ``cache`` blocks as written,
+    with the socket in ``tmp``, the DNS frontend on a free port, the
+    metrics listener on another, the child ZooKeeper and no chroot; the
+    registration, adminIp and zookeeper tuning the loader reads with
+    them."""
+    with open(os.path.join(ROOT, "etc", "config.example.json")) as fh:
+        cfg = json.load(fh)
+    zookeeper = dict(cfg["zookeeper"])
+    zookeeper.pop("chroot")
+    zookeeper["servers"] = [{"host": "127.0.0.1", "port": zk_port}]
+    serve = copy.deepcopy(cfg["serve"])
+    check(serve["shards"] == SHARDS, f"serve.shards {serve['shards']}")
+    serve["socketPath"] = os.path.join(tmp, "resolve.sock")
+    serve["dns"]["port"] = dns_port
+    return {
+        "registration": cfg["registration"],
+        "adminIp": cfg["adminIp"],
+        "zookeeper": zookeeper,
+        "cache": cfg["cache"],
+        "serve": serve,
+        "metrics": {"host": "127.0.0.1", "port": metrics_port},
+        "logLevel": cfg["logLevel"],
+    }
+
+
+def cmdline(pid: int) -> list:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return [a.decode() for a in fh.read().split(b"\0") if a]
+    except OSError:
+        return []
+
+
+def children(pid: int) -> list:
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as fh:
+                    fields = fh.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[1]) == pid:
+                out.append(int(entry))
+    return sorted(out)
+
+
+def cpu_seconds(pid: int) -> float:
+    """User plus system CPU time a process has used so far."""
+    with open(f"/proc/{pid}/stat") as fh:
+        fields = fh.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def alive(pid: int) -> bool:
+    """A process that exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def zkcli(*args) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-m", "registrar_tpu_torch.tools.zkcli", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=60,
+    )
+
+
+def dig_records(out: str, section: str) -> list:
+    """The records of one section of ``zkcli dig`` output."""
+    lines = out.splitlines()
+    start = f";; {section} SECTION:"
+    if start not in lines:
+        return []
+    recs = []
+    for line in lines[lines.index(start) + 1:]:
+        if line.startswith(";"):
+            break
+        name, ttl, _in, rtype, data = line.split("\t")
+        recs.append((name.rstrip("."), rtype, int(ttl), data))
+    return sorted(recs)
+
+
+class StormSocket(asyncio.DatagramProtocol):
+    """One connected UDP socket of the storm; replies are matched to
+    queries by id."""
+
+    def __init__(self) -> None:
+        self.waiting = {}
+        self.transport = None
+
+    def connection_made(self, transport) -> None:
+        self.transport = transport
+        sock = transport.get_extra_info("socket")
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+
+    def datagram_received(self, data, _addr) -> None:
+        fut = self.waiting.pop(int.from_bytes(data[:2], "big"), None)
+        if fut is not None and not fut.done():
+            fut.set_result((data, time.perf_counter()))
+
+
+async def dns_storm(port: int, plan: list, expected: dict) -> dict:
+    """Send ``plan`` (a list of (name, kind)) over STORM_SOCKETS connected
+    UDP sockets, STORM_WINDOW queries in flight on each.  The first reply
+    for each name is decoded and held to ``expected[name]`` (rcode and
+    records); every later reply must equal it byte for byte after the
+    id.  Returns the counts and the per-kind latencies."""
+    from registrar_tpu_torch import dnsfront
+
+    loop = asyncio.get_running_loop()
+    sockets = []
+    for _ in range(STORM_SOCKETS):
+        _t, proto = await loop.create_datagram_endpoint(
+            StormSocket, remote_addr=("127.0.0.1", port))
+        sockets.append(proto)
+    canonical = {}
+    latency = {"A": [], "NXDOMAIN": []}
+    timeouts = []
+    next_id = [0] * STORM_SOCKETS
+
+    def verify(name: str, data: bytes) -> None:
+        body = data[2:]
+        if canonical.get(name) == body:
+            return
+        resp = dnsfront.decode_response(data)
+        rcode, records = expected[name]
+        check(resp.rcode == rcode and not resp.tc,
+              f"storm {name}: rcode {resp.rcode} tc {resp.tc}")
+        got = sorted((n, t, ttl, text) for n, t, ttl, text in resp.answers)
+        check(got == records, f"storm {name}: answers {got[:3]}...")
+        canonical.setdefault(name, body)
+
+    async def lane(s: int, queries: list) -> None:
+        proto = sockets[s]
+        for name, kind in queries:
+            qid = next_id[s]
+            next_id[s] = (qid + 1) & 0xFFFF
+            fut = loop.create_future()
+            proto.waiting[qid] = fut
+            packet = dnsfront.build_query(
+                qid, name, dnsfront.QTYPE_A,
+                edns_size=dnsfront.DEFAULT_UDP_PAYLOAD_MAX)
+            t0 = time.perf_counter()
+            proto.transport.sendto(packet)
+            try:
+                data, t1 = await asyncio.wait_for(fut, STORM_TIMEOUT_S)
+            except asyncio.TimeoutError:
+                proto.waiting.pop(qid, None)
+                timeouts.append(name)
+                continue
+            latency[kind].append((t1 - t0) * 1e3)
+            verify(name, data)
+
+    lanes = [[] for _ in range(STORM_SOCKETS * STORM_WINDOW)]
+    for i, query in enumerate(plan):
+        lanes[i % len(lanes)].append(query)
+    t = time.perf_counter()
+    try:
+        await asyncio.gather(*(
+            lane(i // STORM_WINDOW, q) for i, q in enumerate(lanes)))
+    finally:
+        for proto in sockets:
+            proto.transport.close()
+    wall = time.perf_counter() - t
+    return {"wall_s": wall, "timeouts": timeouts, "latency": latency}
+
+
+def storm_plan(domains: list) -> tuple:
+    """The seeded storm: (plan, names of the NXDOMAIN pool)."""
+    rng = np.random.default_rng(SEED)
+    weights = 1.0 / np.arange(1, len(domains) + 1) ** STORM_ZIPF_S
+    ranked = [domains[i] for i in rng.permutation(len(domains))]
+    nx_names = [f"absent{k}.{SERVE_SUFFIX}" for k in range(STORM_NX_NAMES)]
+    is_nx = rng.random(STORM_QUERIES) < STORM_NX_SHARE
+    hit = rng.choice(len(ranked), size=STORM_QUERIES, p=weights / weights.sum())
+    miss = rng.integers(0, STORM_NX_NAMES, size=STORM_QUERIES)
+    plan = [
+        (nx_names[m], "NXDOMAIN") if nx else (ranked[h], "A")
+        for nx, h, m in zip(is_nx, hit, miss)
+    ]
+    return plan, nx_names
+
+
+def percentile(values: list, q: float) -> float:
+    return float(np.percentile(np.asarray(values), q))
+
+
+async def stop_tier(tier, workers) -> None:
+    """Stop the tier and every worker it spawned, whatever state a failed
+    check left them in: SIGTERM, then SIGKILL for whatever still runs."""
+    workers = set(workers) | set(children(tier.proc.pid))
+    if tier.proc.poll() is None:
+        tier.proc.send_signal(signal.SIGTERM)
+        try:
+            await asyncio.to_thread(tier.proc.wait, 15)
+        except subprocess.TimeoutExpired:
+            pass
+    tier.stop()
+    for pid in workers:
+        if alive(pid) and "registrar_tpu_torch.shard" in cmdline(pid):
+            os.kill(pid, signal.SIGKILL)
+
+
+async def phase_serve(port: int, where: dict) -> None:
+    from registrar_tpu_torch import dnsfront
+    from registrar_tpu_torch.registration import register, unregister
+    from registrar_tpu_torch.shard import HashRing, ShardClient
+    from registrar_tpu_torch.zk.client import ZKClient
+
+    servers = [("127.0.0.1", port)]
+    domains = serve_domains()
+    hosts = {
+        dom: {f"lb-{i:02d}": instance_address(d, i)
+              for i in range(SERVE_INSTANCES)}
+        for d, dom in enumerate(domains)
+    }
+    with open(os.path.join(ROOT, "etc", "config.example.json")) as fh:
+        example = json.load(fh)["registration"]
+    sessions, tier, sc = [], None, None
+    pids_seen = set()
+    out = {"phase": "serve", "domains": len(domains),
+           "instances": len(domains) * SERVE_INSTANCES}
+    t_phase = time.perf_counter()
+    try:
+        # the fleet: one session per service, one register() per instance
+        t = time.perf_counter()
+        for dom in domains:
+            sessions.append(await ZKClient(servers).connect())
+        owned = {}
+
+        async def register_domain(client, dom):
+            reg = {k: v for k, v in example.items()
+                   if k not in ("aliases", "heartbeatInterval")}
+            reg["domain"] = dom
+            for host, addr in hosts[dom].items():
+                owned[(dom, host)] = await register(
+                    client, reg, admin_ip=addr, hostname=host, settle_delay=0)
+
+        await asyncio.gather(*(register_domain(c, d)
+                               for c, d in zip(sessions, domains)))
+        out["register_s"] = time.perf_counter() - t
+        check(len(owned) == len(domains) * SERVE_INSTANCES, f"{len(owned)} registered")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            metrics_port, dns_port = free_port(), free_port()
+            cfg = tier_config(port, tmp, metrics_port, dns_port)
+            cfg_path = write_json(os.path.join(tmp, "tier.json"), cfg)
+
+            async def status():
+                return json.loads(
+                    await asyncio.to_thread(http_get, metrics_port, "/status"))
+
+            async def tier_up(n):
+                try:
+                    st = await status()
+                except OSError:
+                    return None
+                shards = st.get("shards") or {}
+                if (len(shards) == n and all(s["up"] for s in shards.values())
+                        and not st["shards_down"]):
+                    return st
+                return None
+
+            # 1. start
+            tier = Daemon(cfg_path, ["-m", "registrar_tpu_torch.tools.zkcli",
+                                     "serve-sharded", "-f", cfg_path])
+            st = await wait_until(lambda: tier_up(SHARDS), "the tier to start")
+            out["tier_start_s"] = time.perf_counter() - tier.t0
+            check(st["serve"]["dns"]["port"] == dns_port, f"dns {st['serve']['dns']}")
+            proc = await asyncio.to_thread(zkcli, "status", "-f", cfg_path)
+            check(proc.returncode == 0, f"zkcli status exited {proc.returncode}: "
+                  f"{proc.stderr}")
+            up = re.findall(r"^zkcli: status: shard (\d+) up ", proc.stderr, re.M)
+            check(sorted(up) == [str(i) for i in range(SHARDS)],
+                  f"zkcli status shard lines {up}: {proc.stderr}")
+            worker_pids = sorted(s["pid"] for s in st["shards"].values())
+            pids_seen.update(worker_pids)
+            check(children(tier.proc.pid) == worker_pids,
+                  f"tier children {children(tier.proc.pid)} vs {worker_pids}")
+            for pid in worker_pids:
+                argv = cmdline(pid)
+                check(argv[1:3] == ["-m", "registrar_tpu_torch.shard"],
+                      f"worker {pid} runs {argv[:3]}")
+
+            # 2. unix-socket answers, cached and live
+            sc = await ShardClient(cfg["serve"]["socketPath"]).connect()
+
+            async def check_answers(doms, live_too=True):
+                for dom in doms:
+                    want_srv = expected_srv(dom, hosts[dom])
+                    for live in ((False, True) if live_too else (False,)):
+                        res = await sc.resolve(dom, "A", live=live)
+                        check(rows(res.answers) == expected_a(dom, hosts[dom].values())
+                              and not res.additionals,
+                              f"A {dom} live={live}: {rows(res.answers)[:2]}")
+                        res = await sc.resolve(f"_http._tcp.{dom}", "SRV", live=live)
+                        check((rows(res.answers), rows(res.additionals)) == want_srv,
+                              f"SRV {dom} live={live}: {rows(res.answers)[:2]}")
+
+            t = time.perf_counter()
+            await check_answers(domains)
+            out["unix_answers_s"] = time.perf_counter() - t
+            out["unix_resolves_checked"] = len(domains) * 4
+
+            # 3. real DNS packets through zkcli dig, UDP and TCP
+            dom = domains[0]
+            server = f"127.0.0.1:{dns_port}"
+            digs = {
+                "udp_a": ["--server", server, dom],
+                "tcp_a": ["--tcp", "--server", server, dom],
+                "udp_srv": ["--server", server, f"_http._tcp.{dom}"],
+                "tcp_srv": ["--tcp", "--server", server, f"_http._tcp.{dom}"],
+                "udp_nxdomain": ["--server", server, f"absent.{SERVE_SUFFIX}"],
+            }
+            results = await asyncio.gather(*(
+                asyncio.to_thread(zkcli, "dig", *a) for a in digs.values()))
+            dig = dict(zip(digs, results))
+            for key in ("udp_a", "tcp_a"):
+                p = dig[key]
+                check(p.returncode == 0 and "status: NOERROR," in p.stdout,
+                      f"dig {key}: {p.returncode} {p.stdout} {p.stderr}")
+                check(dig_records(p.stdout, "ANSWER")
+                      == expected_a(dom, hosts[dom].values()), f"dig {key} answers")
+            for key in ("udp_srv", "tcp_srv"):
+                p = dig[key]
+                check(p.returncode == 0 and "status: NOERROR," in p.stdout,
+                      f"dig {key}: {p.returncode} {p.stdout} {p.stderr}")
+                check((dig_records(p.stdout, "ANSWER"),
+                       dig_records(p.stdout, "ADDITIONAL"))
+                      == expected_srv(dom, hosts[dom]), f"dig {key} records")
+            check("(UDP->TCP)" in dig["udp_srv"].stdout,
+                  "a 100-record SRV answer did not truncate over UDP")
+            p = dig["udp_nxdomain"]
+            check(p.returncode == 1 and "status: NXDOMAIN," in p.stdout
+                  and dig_records(p.stdout, "ANSWER") == []
+                  and [r[1] for r in dig_records(p.stdout, "AUTHORITY")] == ["SOA"],
+                  f"dig nxdomain: {p.returncode} {p.stdout}")
+            out["dig_checked"] = sorted(digs)
+
+            # 4. the DNS storm over the SO_REUSEPORT group
+            plan, nx_names = storm_plan(domains)
+            expected = {d: (dnsfront.RCODE_NOERROR, expected_a(d, hosts[d].values()))
+                        for d in domains}
+            expected.update({n: (dnsfront.RCODE_NXDOMAIN, []) for n in nx_names})
+            before = await status()
+            workers = {sid: s["pid"] for sid, s in before["shards"].items()}
+            cpu0 = {sid: cpu_seconds(pid) for sid, pid in workers.items()}
+            client0 = time.process_time()
+            storm = await dns_storm(dns_port, plan, expected)
+            client_cpu = time.process_time() - client0
+            worker_cpu = {sid: cpu_seconds(pid) - cpu0[sid]
+                          for sid, pid in workers.items()}
+            after = await status()
+            check(storm["timeouts"] == [],
+                  f"{len(storm['timeouts'])} storm queries timed out")
+
+            def dns_counts(snapshot):
+                return {sid: s["dns"] for sid, s in snapshot["shards"].items()}
+
+            hits = misses = 0
+            per_shard = {}
+            for sid, dns in dns_counts(after).items():
+                prev = dns_counts(before).get(sid) or {"queries": {}}
+                per_shard[sid] = (sum(dns["queries"].values())
+                                  - sum(prev["queries"].values()))
+                hits += dns["encode_cache"]["hits"]
+                misses += dns["encode_cache"]["misses"]
+            check(sum(per_shard.values()) == STORM_QUERIES,
+                  f"tier counted {per_shard} of {STORM_QUERIES} storm queries")
+            sheds = after["serve"]["sheds_total"]
+            dns_sheds = {sid: dns["sheds"] for sid, dns in dns_counts(after).items()}
+            check(not any(sheds.values())
+                  and not any(any(v.values()) for v in dns_sheds.values()),
+                  f"sheds {sheds}, DNS sheds {dns_sheds}")
+            n_nx = len(storm["latency"]["NXDOMAIN"])
+            out.update({
+                "storm_queries": STORM_QUERIES,
+                "storm_nxdomain": n_nx,
+                "storm_timeouts": len(storm["timeouts"]),
+                "storm_in_flight": STORM_SOCKETS * STORM_WINDOW,
+                "storm_s": storm["wall_s"],
+                "storm_qps": STORM_QUERIES / storm["wall_s"],
+                "storm_a_p50_ms": percentile(storm["latency"]["A"], 50),
+                "storm_a_p99_ms": percentile(storm["latency"]["A"], 99),
+                "storm_nxdomain_p99_ms": percentile(storm["latency"]["NXDOMAIN"], 99),
+                "storm_queries_by_shard": per_shard,
+                # CPU seconds over storm seconds: near 1 is a saturated core
+                "storm_client_cpu_share": client_cpu / storm["wall_s"],
+                "storm_worker_cpu_share": {
+                    sid: cpu / storm["wall_s"] for sid, cpu in worker_cpu.items()},
+                "encode_cache_hit_ratio": hits / (hits + misses),
+            })
+
+            # 5. coherence: one instance leaves, the cached answer drops it
+            victim_dom, victim = domains[0], "lb-00"
+            victim_addr = hosts[victim_dom].pop(victim)
+            session = sessions[0]
+            t = time.perf_counter()
+            await unregister(session, [owned[(victim_dom, victim)][0]])
+            acked = time.perf_counter()
+
+            async def dropped():
+                res = await sc.resolve(victim_dom, "A")
+                return victim_addr not in {a.data for a in res.answers}
+
+            await wait_until(dropped, "the cached A answer to drop the instance",
+                             timeout=10)
+            out["coherence_lag_ms"] = (time.perf_counter() - acked) * 1e3
+            out["coherence_write_ms"] = (acked - t) * 1e3
+
+            async def dns_dropped():
+                raw = await dnsfront.query_udp(
+                    "127.0.0.1", dns_port, dnsfront.build_query(
+                        7, victim_dom, dnsfront.QTYPE_A,
+                        edns_size=dnsfront.DEFAULT_UDP_PAYLOAD_MAX))
+                got = sorted(dnsfront.decode_response(raw).answers)
+                return got == expected_a(victim_dom, hosts[victim_dom].values())
+
+            await wait_until(dns_dropped, "the DNS answer to drop the instance",
+                             timeout=10)
+            out["coherence_dns_lag_ms"] = (time.perf_counter() - acked) * 1e3
+            await check_answers([victim_dom])
+
+            # 6. reshard 4 -> 5 under a polling resolver
+            poll = {"n": 0, "errors": []}
+            stop_polling = asyncio.Event()
+
+            async def poller():
+                async with ShardClient(cfg["serve"]["socketPath"]) as psc:
+                    i = 0
+                    while not stop_polling.is_set():
+                        dom = domains[i % len(domains)]
+                        i += 1
+                        try:
+                            res = await psc.resolve(dom, "A")
+                            if rows(res.answers) != expected_a(dom, hosts[dom].values()):
+                                poll["errors"].append(f"{dom}: wrong answer")
+                        except Exception as err:  # noqa: BLE001 - counted
+                            poll["errors"].append(f"{dom}: {err!r}")
+                        poll["n"] += 1
+                        await asyncio.sleep(0.001)
+
+            polling = asyncio.create_task(poller())
+            await asyncio.sleep(0.2)
+            cfg["serve"]["shards"] = RESHARDS
+            write_json(cfg_path, cfg)
+            generation = after["serve"]["generation"]
+            t = time.perf_counter()
+            tier.proc.send_signal(signal.SIGHUP)
+            handoff = re.compile(
+                r"resharded to (\d+) shards \((\d+) warm domains handed off "
+                r"in (\d+) ms\)")
+
+            async def resharded():
+                return next(filter(None, map(handoff.search, list(tier.errors))), None)
+
+            m = await wait_until(resharded, "the reshard", timeout=30)
+            st = await wait_until(lambda: tier_up(RESHARDS), "5 shards up")
+            out["reshard_s"] = time.perf_counter() - t
+            check(int(m.group(1)) == RESHARDS, m.group(0))
+            check(st["serve"]["generation"] > generation, f"generation {st['serve']}")
+            await asyncio.sleep(0.2)
+            stop_polling.set()
+            await polling
+            check(poll["errors"] == [], f"poller errors {poll['errors'][:5]}")
+            check(poll["n"] > 20, f"only {poll['n']} polls")
+            out.update({"warm_handoff_ms": int(m.group(3)),
+                        "warm_domains_moved": int(m.group(2)),
+                        "reshard_polls": poll["n"],
+                        "reshard_poll_errors": len(poll["errors"])})
+            # every slice of the 5-shard ring answers its own domains
+            ring = HashRing(range(RESHARDS))
+            before = {sid: s["resolves_total"] for sid, s in st["shards"].items()}
+            await check_answers(domains, live_too=False)
+            st = await status()
+            moved_on = {sid for sid, s in st["shards"].items()
+                        if s["resolves_total"] > before[sid]}
+            check(moved_on == {str(ring.owner(d)) for d in domains}
+                  == {str(i) for i in range(RESHARDS)},
+                  f"shards that answered after the reshard: {sorted(moved_on)}")
+            pids_seen.update(s["pid"] for s in st["shards"].values())
+
+            # 7. crash: kill -9 one worker; it respawns and answers resume
+            victim_sid = "0"
+            old_pid = st["shards"][victim_sid]["pid"]
+            respawns = st["serve"]["respawns_total"]
+            t = time.perf_counter()
+            os.kill(old_pid, signal.SIGKILL)
+
+            async def respawned():
+                now = await tier_up(RESHARDS)
+                if now and now["shards"][victim_sid]["pid"] != old_pid:
+                    return now
+                return None
+
+            st = await wait_until(respawned, "the worker's respawn", timeout=30)
+            out["respawn_s"] = time.perf_counter() - t
+            check(st["serve"]["respawns_total"] == respawns + 1,
+                  f"respawns_total {st['serve']['respawns_total']}")
+            new_pid = st["shards"][victim_sid]["pid"]
+            check(cmdline(new_pid)[1:3] == ["-m", "registrar_tpu_torch.shard"],
+                  f"respawned worker runs {cmdline(new_pid)[:3]}")
+            pids_seen.update(s["pid"] for s in st["shards"].values())
+            await check_answers([d for d in domains if str(ring.owner(d)) == victim_sid])
+            out["resumed_s"] = time.perf_counter() - t
+
+            # 8. stop
+            await sc.close()
+            sc = None
+            t = time.perf_counter()
+            rc = await tier.signal_and_wait(signal.SIGTERM)
+            out["stop_s"] = time.perf_counter() - t
+            check(rc == 0, f"tier exited {rc} on SIGTERM: {tier.tail()}")
+            left = [pid for pid in sorted(pids_seen) if alive(pid)
+                    and "registrar_tpu_torch.shard" in cmdline(pid)]
+            check(left == [], f"workers left behind: {left}")
+            out["workers_seen"] = len(pids_seen)
+            out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        if sc is not None:
+            await sc.close()
+        if tier is not None:
+            await stop_tier(tier, pids_seen)
+        for client in sessions:
+            await client.close()
+    emit({**out, **where})
+
+
 async def host_phases(port: int, where: dict) -> None:
     await phase_registration(port, where)
     await phase_fleet(port, where)
     await phase_daemon(port, where)
+    await phase_serve(port, where)
 
 
 def main() -> int:

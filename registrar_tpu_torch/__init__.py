@@ -20,6 +20,11 @@ Layer map:
     jlog.py          bunyan JSON log lines on stdout
     statefile.py     on-disk session handoff state for restarts
     metrics.py       Prometheus /metrics, /status and /debug/trace
+    shard.py         the namespace-sharded serve tier (router + workers)
+    dnsfront.py      real DNS (UDP + TCP) in front of the shard workers
+    zkcache.py       watch-coherent resolve cache with serve-stale
+    binderview.py    Binder's view: domain -> A/SRV answers
+    tools/zkcli.py   the operator CLI (``serve-sharded``, ``resolve``, ``dig``)
     traceview.py     trace assembly for /debug/trace?id=
     agent.py         register_plus orchestrator
     registration.py  znode registration pipeline
@@ -35,8 +40,7 @@ import importlib
 __version__ = "1.0.0"
 
 # Flat re-export surface, lazy so that subsets of the package can be
-# imported without pulling in the whole stack.  Only ported modules are
-# listed; the serve-path and cache exports arrive with them.
+# imported without pulling in the whole stack.
 _EXPORTS = {
     "register_plus": "registrar_tpu_torch.agent",
     "RegistrarEvents": "registrar_tpu_torch.agent",
@@ -57,6 +61,8 @@ _EXPORTS = {
     "MetricsServer": "registrar_tpu_torch.metrics",
     "instrument": "registrar_tpu_torch.metrics",
     "instrument_cache": "registrar_tpu_torch.metrics",
+    "resolve": "registrar_tpu_torch.binderview",
+    "ZKCache": "registrar_tpu_torch.zkcache",
 }
 
 

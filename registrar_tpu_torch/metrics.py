@@ -105,15 +105,6 @@ from registrar_tpu_torch import trace as trace_mod
 
 log = logging.getLogger("registrar_tpu_torch.metrics")
 
-# The serve tier's label vocabularies, kept here until the shard and DNS
-# frontend modules are ported.  Copies of the reference's
-# ``shard.SHED_REASONS`` and ``dnsfront.QTYPE_NAMES`` / ``SERVED_QTYPES``
-# (the DNS qtype numbers of RFC 1035, 2782 and 6891); the port's tests
-# hold them equal.
-SHED_REASONS = ("queue_full", "rate_limited", "cold_fill_shed", "slow_client")
-QTYPE_NAMES = {1: "A", 6: "SOA", 16: "TXT", 33: "SRV", 41: "OPT"}
-SERVED_QTYPES = (1, 33, 16)
-
 _LabelKey = Tuple[Tuple[str, str], ...]
 
 
@@ -972,6 +963,8 @@ def instrument_shards(
     # seeded) whether or not any armor is configured — an un-armored
     # tier legitimately reports zero sheds, and the alert rate() needs
     # the zero series either way.
+    from registrar_tpu_torch.shard import SHED_REASONS
+
     sheds = reg.counter(
         "registrar_shed_total",
         "Requests deliberately rejected by the overload armor, by shed "
@@ -1000,6 +993,8 @@ def instrument_shards(
     # whether or not serve.dns is configured — an un-DNS'd tier
     # legitimately reports zero queries, and alert rate()s need the
     # zero series either way (the registry's parity stance).
+    from registrar_tpu_torch.dnsfront import QTYPE_NAMES, SERVED_QTYPES
+
     dns_queries = reg.counter(
         "registrar_dns_queries_total",
         "DNS queries answered at the SO_REUSEPORT frontend, by qtype "

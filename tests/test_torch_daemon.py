@@ -10,14 +10,7 @@ registrar_tpu_torch`` and the subprocess cases drive the port's daemon.
 The test server (``registrar_tpu.testing.server``) stays the reference's:
 it is the peer the port is checked against.  A parametrized body runs
 once per case.  A coroutine body has 60 s; a subprocess body has its own
-``timeout`` or ``wait`` limit.
-
-Left out, each for a module the port does not have yet:
-
-* ``test_metrics.py`` ``TestCacheInstrumentation.test_real_cache_round_trip``
-  needs ``binderview`` and ``zkcache`` (the serve path);
-* ``test_traceview.py`` ``TestZkcliTraceId.test_trace_id_renders_tree``
-  needs ``tools.zkcli`` (the operator CLI).
+``timeout`` or ``wait`` limit.  No body is left out.
 """
 
 import dataclasses
@@ -34,23 +27,18 @@ from registrar_tpu.config import load_config as ref_load_config
 from registrar_tpu_torch.config import load_config as port_load_config
 from tests.test_torch_wire import body_cases, load_test_module, run_body
 
-#: reference test file -> bodies left out, with the unported module each needs
-FILES = {
-    "test_jlog.py": {},
-    "test_config.py": {},
-    "test_statefile.py": {},
-    "test_traceview.py": {
-        "TestZkcliTraceId.test_trace_id_renders_tree": "tools.zkcli",
-    },
-    "test_metrics.py": {
-        "TestCacheInstrumentation.test_real_cache_round_trip":
-            "binderview, zkcache",
-    },
-    "test_main.py": {},
-    "test_e2e_options.py": {},
-}
+#: the reference test files whose bodies run against the port
+FILES = (
+    "test_jlog.py",
+    "test_config.py",
+    "test_statefile.py",
+    "test_traceview.py",
+    "test_metrics.py",
+    "test_main.py",
+    "test_e2e_options.py",
+)
 
-CASES = [c for f, ex in FILES.items() for c in body_cases(f, exclude=ex)]
+CASES = [c for f in FILES for c in body_cases(f)]
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "etc",
                        "config.example.json")
 

@@ -71,6 +71,12 @@ def test_port_has_every_module_of_the_slice():
         "registrar_tpu_torch.traceview",
         "registrar_tpu_torch.metrics",
         "registrar_tpu_torch.main",
+        "registrar_tpu_torch.binderview",
+        "registrar_tpu_torch.zkcache",
+        "registrar_tpu_torch.dnsfront",
+        "registrar_tpu_torch.shard",
+        "registrar_tpu_torch.tools",
+        "registrar_tpu_torch.tools.zkcli",
         "registrar_tpu_torch.__main__",
         "registrar_tpu_torch.graft_entry",
         "registrar_tpu_torch.zk",
@@ -78,6 +84,7 @@ def test_port_has_every_module_of_the_slice():
         "registrar_tpu_torch.zk.framing",
         "registrar_tpu_torch.zk.protocol",
         "registrar_tpu_torch.zk.client",
+        "registrar_tpu_torch.zk.quota",
     }
 
 
@@ -108,7 +115,7 @@ def test_fresh_interpreter_import_leaves_no_reference_or_jax():
     leaked = [m for m in result["modules"] if _forbidden(m)]
     assert leaked == []
     assert set(port_modules()) <= set(result["modules"])
-    assert len(result["exports"]) == 19
+    assert len(result["exports"]) == 21
     for name, module in result["exports"].items():
         assert module.startswith("registrar_tpu_torch."), (name, module)
 
@@ -156,14 +163,26 @@ def test_port_source_names_no_reference_module(rel):
 
 
 def test_serve_tier_vocabularies_equal_the_reference():
-    """``metrics`` keeps its own copies of three constants of modules the
-    port has not yet (the shard tier and the DNS frontend)."""
-    from registrar_tpu import dnsfront, shard
-    from registrar_tpu_torch import metrics
+    """The label vocabularies ``metrics`` reads from the port's shard tier
+    and DNS frontend equal the reference's, and ``metrics`` takes them
+    from the port's modules, not from copies of its own."""
+    from registrar_tpu import dnsfront as ref_dnsfront
+    from registrar_tpu import shard as ref_shard
+    from registrar_tpu_torch import dnsfront, metrics, shard
 
-    assert metrics.SHED_REASONS == shard.SHED_REASONS
-    assert metrics.QTYPE_NAMES == dnsfront.QTYPE_NAMES
-    assert metrics.SERVED_QTYPES == dnsfront.SERVED_QTYPES
+    assert shard.SHED_REASONS == ref_shard.SHED_REASONS
+    assert dnsfront.QTYPE_NAMES == ref_dnsfront.QTYPE_NAMES
+    assert dnsfront.SERVED_QTYPES == ref_dnsfront.SERVED_QTYPES
+    for name in ("SHED_REASONS", "QTYPE_NAMES", "SERVED_QTYPES"):
+        assert not hasattr(metrics, name), name
+    registry = metrics.instrument_shards(shard.ShardRouter(
+        [("127.0.0.1", 1)], 1, "/nonexistent/resolve.sock"))
+    text = registry.render()
+    for reason in shard.SHED_REASONS:
+        assert f'registrar_shed_total{{reason="{reason}"}} 0' in text
+    for qtype in dnsfront.SERVED_QTYPES:
+        name = dnsfront.QTYPE_NAMES[qtype]
+        assert f'qtype="{name}",rcode="NOERROR"' in text
 
 
 def _imported_by(argv) -> tuple:
@@ -182,13 +201,27 @@ def _imported_by(argv) -> tuple:
     return proc.returncode, modules
 
 
-@pytest.mark.parametrize("args", [["--version"], ["-n"]], ids=["version", "check"])
+#: id -> (interpreter arguments, exit code, a port module it must load).
+#: The shard worker, given no spec, loads its whole module and exits 1.
+ENTRY_POINTS = {
+    "version": (["-m", "registrar_tpu_torch", "--version"], 0,
+                "registrar_tpu_torch.main"),
+    "check": (["-m", "registrar_tpu_torch", "-f",
+               os.path.join(REPO, "etc", "config.example.json"), "-n"], 0,
+              "registrar_tpu_torch.main"),
+    "shard_worker": (["-m", "registrar_tpu_torch.shard"], 1,
+                     "registrar_tpu_torch.dnsfront"),
+    "zkcli_help": (["-m", "registrar_tpu_torch.tools.zkcli", "--help"], 0,
+                   "registrar_tpu_torch.binderview"),
+}
+
+
+@pytest.mark.parametrize("args", sorted(ENTRY_POINTS))
 def test_daemon_entry_point_loads_no_reference_jax_or_torch(args):
-    if args == ["-n"]:
-        args = ["-f", os.path.join(REPO, "etc", "config.example.json"), "-n"]
-    rc, modules = _imported_by(["-m", "registrar_tpu_torch", *args])
-    assert rc == 0
-    assert "registrar_tpu_torch.main" in modules
+    argv, expected_rc, loaded = ENTRY_POINTS[args]
+    rc, modules = _imported_by(argv)
+    assert rc == expected_rc
+    assert loaded in modules
     assert [m for m in modules if m.split(".")[0] in (*FORBIDDEN_ROOTS, "torch")] == []
 
 

@@ -65,7 +65,7 @@ def _module_depth(root: str, parts) -> int:
 
 def _rebind_source(source: str) -> str:
     """Point every reference module that the port has at the port.  A
-    module the port lacks (the test server, the shard codec) stays the
+    module the port lacks (the test server, the storm workload) stays the
     reference's: it is the peer the port is checked against."""
 
     def swap(m):
@@ -155,12 +155,13 @@ def param_sets(fn) -> list:
     return sets
 
 
-def body_cases(filename: str, exclude=()) -> list:
+def body_cases(filename: str, exclude=(), only=None) -> list:
     """A ``pytest.param(filename, qualname, case)`` for every test body of
-    a reference file bound to the port, a parametrized body once per case."""
+    a reference file bound to the port (of the classes in ``only``, when
+    given), a parametrized body once per case."""
     mod = load_test_module(filename, port=True)
     out = []
-    for qualname in _test_names(filename, exclude=exclude):
+    for qualname in _test_names(filename, only=only, exclude=exclude):
         n = len(param_sets(_body(mod, qualname)))
         name = f"{filename[5:-3]}::{qualname}"
         out += [
@@ -203,6 +204,7 @@ def test_rebinding_reaches_every_ported_module():
         "from registrar_tpu import malformed\n"
         "from registrar_tpu.testing.server import ZKServer\n"
         "from registrar_tpu.shard import ShardError\n"
+        "from registrar_tpu.testing import workload\n"
         "x = 'registrar_tpu.agent.HEARTBEAT_FAILURE_BACKOFF_S'\n"
         "y = 'registrar_tpu_torch.agent'\n"
     )
@@ -210,7 +212,8 @@ def test_rebinding_reaches_every_ported_module():
         "from registrar_tpu_torch.zk.protocol import Stat",
         "from registrar_tpu_torch import malformed",
         "from registrar_tpu.testing.server import ZKServer",
-        "from registrar_tpu.shard import ShardError",
+        "from registrar_tpu_torch.shard import ShardError",
+        "from registrar_tpu.testing import workload",
         "x = 'registrar_tpu_torch.agent.HEARTBEAT_FAILURE_BACKOFF_S'",
         "y = 'registrar_tpu_torch.agent'",
     ]
