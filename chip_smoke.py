@@ -45,18 +45,31 @@ Phases:
    a SIGHUP reshard to 5 shards under a polling resolver that must see
    no error, a ``kill -9`` of one worker, and a SIGTERM that must leave
    no worker behind;
-7. kernels: the repository has no Pallas kernel, so the port has no
+7. train: the training step on the card at full width (``train_step``,
+   bf16, fwd + autograd bwd + SGD) held against the float32 reference
+   for the loss and both weights' gradients, and timed with CUDA events; ``dryrun_multichip(1)``, one rank on the card
+   over NCCL, must print ``DRYRUN_OK`` with the in-process step's loss;
+   ``dryrun_multichip(2, device="cpu")`` runs the tp = 2 mesh over gloo
+   on the host;
+8. slo: the port's availability harness runs the seeded ``quick`` trace
+   (5 members, a 3-member ZooKeeper ensemble, a 2-shard serve tier,
+   every cataloged fault class once) with its levers on, and every
+   fault class must have been injected and probed;
+9. kernels: the repository has no Pallas kernel, so the port has no
    hand-written kernel to build or check: ``{"kernels": []}``.
 
-The last line of standard output is
+Phases 3 to 6 run against the port's own ZooKeeper server
+(``python3 -m registrar_tpu_torch.testing.server``), started as a child
+process.  The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Timings name the card, its power limit and the host CPU beside them:
-phases 3 to 6 are host work.
+phases 3 to 6 and 8 are host work.
 """
 
 import asyncio
 import copy
 import json
+import logging
 import os
 import platform
 import re
@@ -140,7 +153,19 @@ POLL_S = 0.01
 
 FLEET_SERVICES, FLEET_NODES_PER_SERVICE = 100, 10
 MULTI_CHUNK = 500
-FLEET_SWEEPS = 5
+#: enough sweeps (about 1 s) for the CPU shares to resolve a 10 ms tick
+FLEET_SWEEPS = 50
+
+#: seeded (x, y) batches the training step is held to its float32
+#: reference on, besides the dry run's x = ones, y = zeros
+N_TRAIN_CASES = 4
+
+#: the SLO trace of phase 8, as the availability harness's runner
+#: defaults to it: the quick trace, levers on, with a fixed seed
+SLO_TRACE, SLO_SEED = "quick", 1234
+#: the least count of fault classes with a measured MTTD and MTTR
+#: (the harness runner's floor for the quick trace)
+SLO_MIN_MEASURED = 4
 
 
 class SmokeError(RuntimeError):
@@ -274,10 +299,9 @@ def phase_model(where: dict) -> None:
 
 
 class ZooKeeperChild:
-    """The hermetic ZooKeeper server, as a separate process reached only
-    over TCP.  The port's client runs against the reference package's
-    test server (``registrar_tpu.testing.server``) until that server is
-    itself ported; this script never imports it."""
+    """The port's hermetic ZooKeeper server
+    (``registrar_tpu_torch.testing.server``), as a separate process
+    reached only over TCP."""
 
     def __init__(self) -> None:
         self.proc = None
@@ -286,7 +310,7 @@ class ZooKeeperChild:
 
     def __enter__(self) -> "ZooKeeperChild":
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "registrar_tpu.testing.server",
+            [sys.executable, "-m", "registrar_tpu_torch.testing.server",
              "--host", "127.0.0.1", "--port", "0"],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
@@ -422,7 +446,7 @@ async def phase_registration(port: int, where: dict) -> None:
     })
 
 
-async def phase_fleet(port: int, where: dict) -> None:
+async def phase_fleet(port: int, where: dict, server_pid=None) -> None:
     from registrar_tpu_torch.zk.client import Op, OwnershipError, ZKClient
     from registrar_tpu_torch.zk.protocol import CreateFlag
 
@@ -447,13 +471,21 @@ async def phase_fleet(port: int, where: dict) -> None:
             ])
         create_s = time.perf_counter() - t0
 
+        # CPU seconds of the client (this process) and of the ZooKeeper
+        # child over the sweeps' wall time: where a sweep's host time goes.
         sweeps = []
+        client0 = time.process_time()
+        server0 = cpu_seconds(server_pid) if server_pid else 0.0
         for _ in range(FLEET_SWEEPS):
             t = time.perf_counter()
             outcomes = await client.heartbeat_many(groups)
             sweeps.append((time.perf_counter() - t) * 1e3)
             check(outcomes == [None] * FLEET_SERVICES,
                   f"unowned probes: {[o for o in outcomes if o is not None][:3]}")
+        sweep_s = sum(sweeps) / 1e3
+        client_share = (time.process_time() - client0) / sweep_s
+        server_share = ((cpu_seconds(server_pid) - server0) / sweep_s
+                        if server_pid else None)
         # The ownership check is live: another session's node is refused.
         await other.create("/fleet/foreign", b"{}", flags=CreateFlag.EPHEMERAL)
         (foreign,) = await client.heartbeat_many([["/fleet/foreign"]])
@@ -469,6 +501,8 @@ async def phase_fleet(port: int, where: dict) -> None:
         "sweep": f"{FLEET_SERVICES} services x {FLEET_NODES_PER_SERVICE} znodes",
         "sweep_ms_median": statistics.median(sweeps),
         "sweep_ms": sweeps,
+        "sweep_client_cpu_share": client_share,
+        "sweep_server_cpu_share": server_share,
         **where,
     })
 
@@ -1384,9 +1418,190 @@ async def phase_serve(port: int, where: dict) -> None:
     emit({**out, **where})
 
 
-async def host_phases(port: int, where: dict) -> None:
+# --- phase 7: the training step ---------------------------------------------
+
+
+def _train_close(params: dict, x, y) -> dict:
+    """The bf16 step against its float32 reference on one input: the loss
+    within LOSS_RTOL, each gradient within GRAD_RTOL of the reference's
+    largest element, and the updated weights bf16 on the card.  Returns
+    the loss's abs error and each gradient's relative error."""
+    from registrar_tpu_torch.graft_entry import (
+        GRAD_RTOL, LOSS_RTOL, grad_error, loss_and_grads,
+        loss_and_grads_reference, train_step,
+    )
+
+    loss, grads = loss_and_grads(params, x, y)
+    ref_loss, ref = loss_and_grads_reference(params, x, y)
+    check(bool(torch.isfinite(loss)), "non-finite training loss")
+    check(abs(loss.item() - ref_loss.item()) <= LOSS_RTOL * abs(ref_loss.item()),
+          f"bf16 loss {loss.item()!r} off the fp32 loss {ref_loss.item()!r}")
+    errs = {"loss": abs(loss.item() - ref_loss.item())}
+    new, _ = train_step(params, x, y)
+    for name in ("w1", "w2"):
+        got = new[name]
+        check(got.device.type == "cuda" and got.dtype == torch.bfloat16
+              and got.shape == params[name].shape,
+              f"updated {name} on {got.device} as {got.dtype} {tuple(got.shape)}")
+        errs[name] = grad_error({name: grads[name]}, ref)
+        check(errs[name] <= GRAD_RTOL,
+              f"gradient of {name} off the fp32 step's by {errs[name]:.3e} "
+              "of its largest element")
+    return errs
+
+
+def phase_train(where: dict) -> None:
+    from registrar_tpu_torch.graft_entry import (
+        BATCH, DHID, DIN, DOUT, GRAD_RTOL, LOSS_RTOL, dryrun_multichip,
+        dryrun_params, mesh_shape, train_step, train_step_reference,
+    )
+
+    dev = torch.device("cuda")
+    params = dryrun_params(dev)
+    ones = torch.ones((BATCH, DIN), dtype=torch.bfloat16, device=dev)
+    zeros = torch.zeros((BATCH, DOUT), dtype=torch.float32, device=dev)
+    cases = [(ones, zeros)]
+    for i in range(N_TRAIN_CASES):
+        rng = np.random.default_rng(SEED + 100 + i)
+        x = rng.standard_normal((BATCH, DIN)).astype(np.float32)
+        y = 0.1 * rng.standard_normal((BATCH, DOUT)).astype(np.float32)
+        cases.append((torch.from_numpy(x).to(dev, torch.bfloat16),
+                      torch.from_numpy(y).to(dev)))
+    errs = [_train_close(params, x, y) for x, y in cases]
+    _, step_loss = train_step(params, ones, zeros)
+
+    step_ms = _time_ms(lambda: train_step(params, ones, zeros))
+    reference_ms = _time_ms(lambda: train_step_reference(params, ones, zeros))
+    # The least time the card could take for the step: the weights, x and
+    # y read once, the new weights and the loss written once; the forward
+    # (2 products) and the backward (dW2, dH, dW1) at the bf16 peak.
+    moved = (2 * 2 * (DIN * DHID + DHID * DOUT) + 2 * BATCH * DIN
+             + 4 * BATCH * DOUT + 4)
+    flops = 4 * BATCH * DIN * DHID + 6 * BATCH * DHID * DOUT
+    bound_ms = max(moved / H100_BYTES_PER_S, flops / H100_BF16_FLOPS) * 1e3
+
+    # One rank on the card over NCCL, then the tp = 2 mesh on the host
+    # over gloo (this card machine has one card), one after the other so
+    # that dryrun_s is the NCCL run's alone: each is a child process and
+    # most of its time is interpreter and rank start.
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = dryrun_multichip(*args, **kwargs)
+        return out, time.perf_counter() - t
+
+    nccl, dryrun_s = timed(1)
+    gloo, gloo_s = timed(2, device="cpu")
+    # x = ones rows, so the batch size does not change the loss.
+    check(bool(np.isfinite(nccl["loss"])), f"dry run loss {nccl}")
+    check(abs(nccl["loss"] - step_loss.item()) <= LOSS_RTOL * abs(step_loss.item()),
+          f"dry run loss {nccl['loss']!r} vs the in-process step's "
+          f"{step_loss.item()!r}")
+    for run in (nccl, gloo):  # each rank held its gradients; the worst
+        check(run["grad_err"] <= GRAD_RTOL, f"dry run gradients {run}")
+    check((gloo["dp"], gloo["tp"]) == mesh_shape(2), f"gloo dry run {gloo}")
+    check(abs(gloo["loss"] - step_loss.item()) <= LOSS_RTOL * abs(step_loss.item()),
+          f"gloo dry run loss {gloo['loss']!r} vs {step_loss.item()!r}")
+    emit({
+        "phase": "train",
+        "cases": len(cases),
+        "max_abs_err_loss": max(e["loss"] for e in errs),
+        "grad_rel_err_w1": max(e["w1"] for e in errs),
+        "grad_rel_err_w2": max(e["w2"] for e in errs),
+        "loss": step_loss.item(),
+        "train_step_ms_median": statistics.median(step_ms),
+        "train_step_ms_min": min(step_ms),
+        "fp32_reference_ms_median": statistics.median(reference_ms),
+        "bytes": moved,
+        "operations": flops,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if moved / H100_BYTES_PER_S > flops / H100_BF16_FLOPS
+        else "operations",
+        "launches_timed": TIMED_LAUNCHES,
+        "dryrun_nccl": nccl,
+        "dryrun_s": dryrun_s,
+        "dryrun_gloo_host": {**gloo, "backend": "gloo", "device": "cpu (host)",
+                             "seconds": gloo_s},
+        **where,
+    })
+
+
+# --- phase 8: the availability harness --------------------------------------
+
+
+class _StormEnvelope(logging.Handler):
+    """Keeps the storm workload's summary that the ``overload-storm``
+    scenario logs once its checks have passed."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.summary = None
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if str(record.msg).startswith("overload-storm envelope"):
+            self.summary = record.args[-1]
+
+
+async def phase_slo(where: dict) -> None:
+    from registrar_tpu_torch.testing import slo
+
+    quick = [fid for fid, _kw in slo.TRACES[SLO_TRACE]["scenarios"]]
+    check(set(quick) == set(slo.FAULT_IDS),
+          f"the quick trace covers {sorted(set(quick))}, the catalog "
+          f"{sorted(slo.FAULT_IDS)}")
+    # Reconnect and degrade warnings are the simulator working.
+    quiet = logging.getLogger("registrar_tpu_torch")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)
+    storm_log = logging.getLogger(slo.__name__)
+    envelope = _StormEnvelope()
+    storm_log.addHandler(envelope)
+    storm_log.setLevel(logging.INFO)
+    t = time.perf_counter()
+    try:
+        report = await slo.run_trace(SLO_TRACE, seed=SLO_SEED, levers=True)
+    finally:
+        quiet.setLevel(level)
+        storm_log.removeHandler(envelope)
+        storm_log.setLevel(logging.NOTSET)
+    wall = time.perf_counter() - t
+    storm = envelope.summary
+    check(storm is not None, "overload-storm logged no envelope")
+    faults = report["faults"]
+    unprobed = [fid for fid in quick
+                if fid not in faults or not faults[fid]["injected"]
+                or faults[fid].get("availability") is None]
+    check(unprobed == [], f"fault classes not injected and probed: {unprobed}")
+    gate = report["gate_metrics"]
+    check(gate["fault_classes_measured"] >= SLO_MIN_MEASURED,
+          f"only {gate['fault_classes_measured']} fault classes measured")
+    check(report["probes"]["total"] > 100, f"probes {report['probes']}")
+    check(report["shards"]["shards"] == 2 and report["ensemble"]["members"] == 3,
+          f"trace shape {report['shards']} {report['ensemble']}")
+    emit({
+        "phase": "slo",
+        "trace": SLO_TRACE,
+        "seed": SLO_SEED,
+        "levers": True,
+        "members": report["members"],
+        "fault_classes": len(quick),
+        **gate,
+        "availability_by_class": {
+            fid: faults[fid]["availability"] for fid in quick},
+        "mttr_s_by_class": {fid: faults[fid]["mttr_s_mean"] for fid in quick},
+        "probes": report["probes"],
+        # the storm clients' own explicit sheds, the scenario's check
+        "storm_client_sheds": storm["sheds_total"],
+        "storm_timeouts": storm["timeouts_total"],
+        "loris": storm["loris"],
+        "trace_s": report["duration_s"],
+        "phase_s": wall,
+        **where,
+    })
+
+
+async def host_phases(port: int, where: dict, server_pid=None) -> None:
     await phase_registration(port, where)
-    await phase_fleet(port, where)
+    await phase_fleet(port, where, server_pid)
     await phase_daemon(port, where)
     await phase_serve(port, where)
 
@@ -1402,7 +1617,9 @@ def main() -> int:
     where = phase_device()
     phase_model(where)
     with ZooKeeperChild() as zk:
-        asyncio.run(host_phases(zk.port, where))
+        asyncio.run(host_phases(zk.port, where, zk.proc.pid))
+    phase_train(where)
+    asyncio.run(phase_slo(where))
     print(json.dumps({"kernels": []}), flush=True)
     print(json.dumps({
         "ok": True,

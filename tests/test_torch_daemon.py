@@ -43,10 +43,11 @@ EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "etc",
                        "config.example.json")
 
 
-def bindings(mod, package: str) -> list:
+def bindings(mod, package: str, harness: bool = False) -> list:
     """Names in a rebound test module bound to a module of ``package``, or
-    to a function or class defined in one; the reference's test harness
-    (``registrar_tpu.testing``) is left out."""
+    to a function or class defined in one.  Unless ``harness`` is set the
+    reference's test harness (``registrar_tpu.testing``), the peer of a
+    client-side body, is left out."""
     out = []
     for name, value in vars(mod).items():
         home = (
@@ -56,7 +57,7 @@ def bindings(mod, package: str) -> list:
         if (
             isinstance(home, str)
             and home.split(".")[0] == package
-            and not home.startswith("registrar_tpu.testing")
+            and (harness or not home.startswith("registrar_tpu.testing"))
         ):
             out.append((name, home))
     return out

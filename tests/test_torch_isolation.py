@@ -5,13 +5,16 @@ its logger with a string literal, and the package's lazy export map
 holds module paths as strings; a copied file that missed one of these
 would silently run the reference.  These tests import the whole port in
 a fresh interpreter and scan its source, and that of ``chip_smoke.py``,
-for any such reference.  They also pin that ``chip_smoke.py`` has no
-CPU fallback.
+for any such reference, and run the port's entry points (the daemon,
+the shard worker, the CLI, the test ZooKeeper server and the training
+dry run's child) to list every module each loads.  They also pin that
+``chip_smoke.py`` has no CPU fallback.
 """
 
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -24,10 +27,6 @@ REF = os.path.join(REPO, "registrar_tpu")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 
 FORBIDDEN_ROOTS = {"registrar_tpu", "jax", "jaxlib"}
-
-#: the one reference module chip_smoke.py names: the ZooKeeper stand-in
-#: it starts as a child process (never imported)
-SMOKE_CHILD_MODULE = "registrar_tpu.testing.server"
 
 
 def port_files():
@@ -85,6 +84,11 @@ def test_port_has_every_module_of_the_slice():
         "registrar_tpu_torch.zk.protocol",
         "registrar_tpu_torch.zk.client",
         "registrar_tpu_torch.zk.quota",
+        "registrar_tpu_torch.testing",
+        "registrar_tpu_torch.testing.netem",
+        "registrar_tpu_torch.testing.server",
+        "registrar_tpu_torch.testing.workload",
+        "registrar_tpu_torch.testing.slo",
     }
 
 
@@ -185,12 +189,13 @@ def test_serve_tier_vocabularies_equal_the_reference():
         assert f'qtype="{name}",rcode="NOERROR"' in text
 
 
-def _imported_by(argv) -> tuple:
-    """(exit code, every module imported) of ``python3 -X importtime
-    <argv>`` in a fresh interpreter."""
+def _imported_by(argv, **env) -> tuple:
+    """(exit code, every module imported, standard output) of ``python3
+    -X importtime <argv>`` in a fresh interpreter, with ``env`` added to
+    its environment."""
     proc = subprocess.run(
         [sys.executable, "-X", "importtime", *argv], cwd=REPO,
-        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        env=dict(os.environ, PYTHONPATH=REPO, **env), capture_output=True,
         text=True, timeout=60,
     )
     modules = {
@@ -198,7 +203,7 @@ def _imported_by(argv) -> tuple:
         for line in proc.stderr.splitlines()[1:]  # below the header
         if line.startswith("import time:")
     }
-    return proc.returncode, modules
+    return proc.returncode, modules, proc.stdout
 
 
 #: id -> (interpreter arguments, exit code, a port module it must load).
@@ -213,16 +218,33 @@ ENTRY_POINTS = {
                      "registrar_tpu_torch.dnsfront"),
     "zkcli_help": (["-m", "registrar_tpu_torch.tools.zkcli", "--help"], 0,
                    "registrar_tpu_torch.binderview"),
+    "zk_server_help": (["-m", "registrar_tpu_torch.testing.server", "--help"],
+                       0, "registrar_tpu_torch.zk.quota"),
 }
 
 
 @pytest.mark.parametrize("args", sorted(ENTRY_POINTS))
 def test_daemon_entry_point_loads_no_reference_jax_or_torch(args):
     argv, expected_rc, loaded = ENTRY_POINTS[args]
-    rc, modules = _imported_by(argv)
+    rc, modules, _ = _imported_by(argv)
     assert rc == expected_rc
     assert loaded in modules
     assert [m for m in modules if m.split(".")[0] in (*FORBIDDEN_ROOTS, "torch")] == []
+
+
+def test_graft_entry_child_loads_no_reference_or_jax():
+    """The training dry run's child, launched by path as
+    ``dryrun_multichip`` launches it, runs one gloo rank on torch alone."""
+    script = os.path.join(PORT, "graft_entry.py")
+    rc, modules, out = _imported_by(
+        [script, "--dryrun-child", "1"],
+        PYTHONSAFEPATH="1", GRAFT_DRYRUN_DEVICE="cpu", OMP_NUM_THREADS="1",
+    )
+    assert rc == 0
+    assert out.startswith("DRYRUN_OK n=1 dp=1 tp=1 ")
+    assert {"torch", "torch.distributed", "torch.multiprocessing"} <= modules
+    assert [m for m in modules if _forbidden(m)] == []
+    assert not any(m.startswith("registrar_tpu_torch") for m in modules)
 
 
 def test_chip_smoke_imports_neither_reference_nor_jax():
@@ -231,9 +253,10 @@ def test_chip_smoke_imports_neither_reference_nor_jax():
     assert {i.split(".")[0] for i in imports} <= {
         "registrar_tpu_torch", "torch", "numpy", *sys.stdlib_module_names
     }
-    assert [s for s in strings if _names_reference_module(s)] == [
-        SMOKE_CHILD_MODULE
-    ]
+    # it spawns, imports and names no reference module at all
+    assert [s for s in strings if _names_reference_module(s)] == []
+    with open(SMOKE) as fh:
+        assert re.search(r"\bregistrar_tpu\b(?!_)", fh.read()) is None
 
 
 def _run_smoke(cwd):

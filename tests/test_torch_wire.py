@@ -63,17 +63,26 @@ def _module_depth(root: str, parts) -> int:
     return 0
 
 
-def _rebind_source(source: str) -> str:
-    """Point every reference module that the port has at the port.  A
-    module the port lacks (the test server, the storm workload) stays the
-    reference's: it is the peer the port is checked against."""
+#: The reference's test harness package (ZooKeeper server, netem, storm
+#: workload, SLO harness), relative to ``registrar_tpu``.
+HARNESS = "testing"
+
+
+def _rebind_source(source: str, harness: bool = False, client: bool = True) -> str:
+    """Point every reference module that the port has at the port.  The
+    test harness (``registrar_tpu.testing``) stays the reference's unless
+    ``harness`` is set: for a client-side body it is the peer the port is
+    checked against; a harness body runs against the port's own.  With
+    ``client`` unset only the harness moves: the reference's client
+    against the port's server."""
 
     def swap(m):
         parts = [p for p in m.group(1).split(".") if p]
         module = parts[: _module_depth(REF_DIR, parts)]
         if _module_depth(PORT_DIR, module) != len(module):
             return m.group(0)
-        return "registrar_tpu_torch" + m.group(1)
+        moves = harness if module[:1] == [HARNESS] else client
+        return "registrar_tpu_torch" + m.group(1) if moves else m.group(0)
 
     return _REF_NAME.sub(swap, source)
 
@@ -81,17 +90,21 @@ def _rebind_source(source: str) -> str:
 _LOADED = {}
 
 
-def load_test_module(filename: str, port: bool) -> types.ModuleType:
-    """``tests/<filename>`` executed as a fresh module, its ported
-    imports rebound to ``registrar_tpu_torch`` when ``port`` is set."""
-    key = (filename, port)
+def load_test_module(
+    filename: str, port: bool, harness: bool = False
+) -> types.ModuleType:
+    """``tests/<filename>`` executed as a fresh module: its ported
+    client-side imports rebound to ``registrar_tpu_torch`` when ``port``
+    is set, its test-harness imports when ``harness`` is set."""
+    key = (filename, port, harness)
     if key not in _LOADED:
         path = os.path.join(TESTS, filename)
         with open(path) as fh:
             source = fh.read()
-        if port:
-            source = _rebind_source(source)
-        name = f"_{'port' if port else 'ref'}_bound_{filename[:-3]}"
+        if port or harness:
+            source = _rebind_source(source, harness=harness, client=port)
+        binding = ("ref", "port", "refclient", "harness")[port + 2 * harness]
+        name = f"_{binding}_bound_{filename[:-3]}"
         mod = types.ModuleType(name)
         mod.__file__ = path
         sys.modules[name] = mod
@@ -155,11 +168,12 @@ def param_sets(fn) -> list:
     return sets
 
 
-def body_cases(filename: str, exclude=(), only=None) -> list:
+def body_cases(filename: str, exclude=(), only=None, harness=False,
+               port=True) -> list:
     """A ``pytest.param(filename, qualname, case)`` for every test body of
     a reference file bound to the port (of the classes in ``only``, when
     given), a parametrized body once per case."""
-    mod = load_test_module(filename, port=True)
+    mod = load_test_module(filename, port=port, harness=harness)
     out = []
     for qualname in _test_names(filename, only=only, exclude=exclude):
         n = len(param_sets(_body(mod, qualname)))
@@ -198,22 +212,56 @@ GOLDEN_BODIES = (
 )
 
 
+REBIND_SAMPLE = (
+    "from registrar_tpu.zk.protocol import Stat\n"
+    "from registrar_tpu import malformed\n"
+    "from registrar_tpu.testing.server import ZKServer\n"
+    "from registrar_tpu.shard import ShardError\n"
+    "from registrar_tpu.testing import workload\n"
+    "cmd = ['-m', 'registrar_tpu.testing.server', '--port', '0']\n"
+    "x = 'registrar_tpu.agent.HEARTBEAT_FAILURE_BACKOFF_S'\n"
+    "y = 'registrar_tpu_torch.agent'\n"
+)
+
+
 def test_rebinding_reaches_every_ported_module():
-    src = _rebind_source(
-        "from registrar_tpu.zk.protocol import Stat\n"
-        "from registrar_tpu import malformed\n"
-        "from registrar_tpu.testing.server import ZKServer\n"
-        "from registrar_tpu.shard import ShardError\n"
-        "from registrar_tpu.testing import workload\n"
-        "x = 'registrar_tpu.agent.HEARTBEAT_FAILURE_BACKOFF_S'\n"
-        "y = 'registrar_tpu_torch.agent'\n"
-    )
-    assert src.splitlines() == [
+    """Client-side bodies: every ported module goes to the port, the test
+    harness stays the reference's (the peer)."""
+    assert _rebind_source(REBIND_SAMPLE).splitlines() == [
         "from registrar_tpu_torch.zk.protocol import Stat",
         "from registrar_tpu_torch import malformed",
         "from registrar_tpu.testing.server import ZKServer",
         "from registrar_tpu_torch.shard import ShardError",
         "from registrar_tpu.testing import workload",
+        "cmd = ['-m', 'registrar_tpu.testing.server', '--port', '0']",
+        "x = 'registrar_tpu_torch.agent.HEARTBEAT_FAILURE_BACKOFF_S'",
+        "y = 'registrar_tpu_torch.agent'",
+    ]
+
+
+def test_harness_only_rebinding_keeps_the_reference_client():
+    """Cross-runs: the reference's client against the port's harness."""
+    assert _rebind_source(REBIND_SAMPLE, harness=True, client=False).splitlines() == [
+        "from registrar_tpu.zk.protocol import Stat",
+        "from registrar_tpu import malformed",
+        "from registrar_tpu_torch.testing.server import ZKServer",
+        "from registrar_tpu.shard import ShardError",
+        "from registrar_tpu_torch.testing import workload",
+        "cmd = ['-m', 'registrar_tpu_torch.testing.server', '--port', '0']",
+        "x = 'registrar_tpu.agent.HEARTBEAT_FAILURE_BACKOFF_S'",
+        "y = 'registrar_tpu_torch.agent'",
+    ]
+
+
+def test_harness_rebinding_reaches_the_ported_harness():
+    """Harness bodies: the test harness goes to the port as well."""
+    assert _rebind_source(REBIND_SAMPLE, harness=True).splitlines() == [
+        "from registrar_tpu_torch.zk.protocol import Stat",
+        "from registrar_tpu_torch import malformed",
+        "from registrar_tpu_torch.testing.server import ZKServer",
+        "from registrar_tpu_torch.shard import ShardError",
+        "from registrar_tpu_torch.testing import workload",
+        "cmd = ['-m', 'registrar_tpu_torch.testing.server', '--port', '0']",
         "x = 'registrar_tpu_torch.agent.HEARTBEAT_FAILURE_BACKOFF_S'",
         "y = 'registrar_tpu_torch.agent'",
     ]
