@@ -21,8 +21,8 @@ Phases:
    down and back up by a flipping health check, and its session closes;
    the tree is compared with the data contract (docs/CONTRACT.md) at
    every stage;
-4. fleet scale: 1000 ephemerals on one session, swept by
-   ``heartbeat_many`` as 100 services x 10 znodes;
+4. fleet scale: 1000 and then 10 000 ephemerals on one session, swept
+   by ``heartbeat_many`` as 100 and 1000 services x 10 znodes;
 5. daemon: ``python3 -m registrar_tpu_torch -f cfg.json`` with the
    deployment shape of ``etc/config.example.json`` (its registration,
    adminIp and tuning; heartbeat 0.2 s, a ``test -f <flag>`` health check
@@ -45,6 +45,16 @@ Phases:
    a SIGHUP reshard to 5 shards under a polling resolver that must see
    no error, a ``kill -9`` of one worker, and a SIGTERM that must leave
    no worker behind;
+   region: the main path at a region's size against a ZooKeeper child of
+   its own: 10 000 load balancers over 64 service domains of 5 to 1000
+   instances (a seeded Zipf split), registered over 1000 sessions of 10
+   and swept by all of them at once, then served by phase 6's tier:
+   every answer over the unix socket, ``zkcli dig`` of the largest domain
+   (TC over UDP, whole over TCP, its SRV answer past one TCP message TC
+   there too), a storm whose client follows TC over TCP and must see TC
+   exactly where an A answer outgrows 1232 bytes, an unregister the
+   cached answer over TCP must drop, and a SIGTERM that must leave no
+   worker behind;
 7. train: the training step on the card at full width (``train_step``,
    bf16, fwd + autograd bwd + SGD) held against the float32 reference
    for the loss and both weights' gradients, and timed with CUDA events; ``dryrun_multichip(1)``, one rank on the card
@@ -83,10 +93,11 @@ Phases:
 
 Phases 3 to 6 run against the port's own ZooKeeper server
 (``python3 -m registrar_tpu_torch.testing.server``), started as a child
-process.  The last line of standard output is
+process, and the region against another, started after them.  The last
+line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Timings name the card, its power limit and the host CPU beside them:
-phases 3 to 6 and 8 to 10 are host work.
+phases 3 to 6, the region and 8 to 10 are host work.
 """
 
 import ast
@@ -96,6 +107,7 @@ import json
 import math
 import os
 import re
+import resource
 import signal
 import socket
 import statistics
@@ -174,10 +186,15 @@ EX_CONFIG = 78
 #: the observer's poll period while it watches the daemon's znodes
 POLL_S = 0.01
 
-FLEET_SERVICES, FLEET_NODES_PER_SERVICE = 100, 10
+#: phase 4's sizes, (services, znodes per service): the 1000 ephemerals
+#: of every earlier slice, and 10 000, the deep end of the reference's
+#: heartbeat matrix (bench.py:1296-1304; docs/PERF.md "The 1k-10k matrix")
+FLEET_SIZES = ((100, 10), (1000, 10))
 MULTI_CHUNK = 500
-#: enough sweeps (about 1 s) for the CPU shares to resolve a 10 ms tick
-FLEET_SWEEPS = 50
+#: sweeps at each size until their time adds up to about 1 s, so that the
+#: CPU shares resolve a 10 ms tick, and never fewer than FLEET_MIN_SWEEPS
+FLEET_SWEEP_S = 1.0
+FLEET_MIN_SWEEPS = 5
 
 #: seeded (x, y) batches the training step is held to its float32
 #: reference on, besides the dry run's x = ones, y = zeros
@@ -508,22 +525,24 @@ async def phase_registration(port: int, where: dict) -> None:
     })
 
 
-async def phase_fleet(port: int, where: dict, server_pid=None) -> None:
+async def fleet_run(port: int, services: int, per_service: int,
+                    server_pid=None) -> dict:
+    """``services`` x ``per_service`` ephemerals on one session, created
+    in ``multi`` chunks of MULTI_CHUNK and swept by ``heartbeat_many``
+    under ``/fleet<total>``; then the ownership check on another
+    session's node."""
     from registrar_tpu_torch.zk.client import Op, OwnershipError, ZKClient
     from registrar_tpu_torch.zk.protocol import CreateFlag
 
     servers = [("127.0.0.1", port)]
+    root = f"/fleet{services * per_service}"
     client = await ZKClient(servers).connect()
     other = await ZKClient(servers).connect()
     try:
-        services = [f"/fleet/svc-{i:03d}" for i in range(FLEET_SERVICES)]
-        groups = [
-            [f"{svc}/node-{j:02d}" for j in range(FLEET_NODES_PER_SERVICE)]
-            for svc in services
-        ]
-        await client.multi(
-            [Op.create("/fleet")] + [Op.create(svc) for svc in services]
-        )
+        paths = [f"{root}/svc-{i:04d}" for i in range(services)]
+        groups = [[f"{svc}/node-{j:02d}" for j in range(per_service)]
+                  for svc in paths]
+        await client.multi([Op.create(root)] + [Op.create(svc) for svc in paths])
         ephemerals = [n for g in groups for n in g]
         t0 = time.perf_counter()
         for i in range(0, len(ephemerals), MULTI_CHUNK):
@@ -538,35 +557,39 @@ async def phase_fleet(port: int, where: dict, server_pid=None) -> None:
         sweeps = []
         client0 = time.process_time()
         server0 = cpu_seconds(server_pid) if server_pid else 0.0
-        for _ in range(FLEET_SWEEPS):
+        while len(sweeps) < FLEET_MIN_SWEEPS or sum(sweeps) < FLEET_SWEEP_S * 1e3:
             t = time.perf_counter()
             outcomes = await client.heartbeat_many(groups)
             sweeps.append((time.perf_counter() - t) * 1e3)
-            check(outcomes == [None] * FLEET_SERVICES,
+            check(outcomes == [None] * services,
                   f"unowned probes: {[o for o in outcomes if o is not None][:3]}")
         sweep_s = sum(sweeps) / 1e3
         client_share = (time.process_time() - client0) / sweep_s
         server_share = ((cpu_seconds(server_pid) - server0) / sweep_s
                         if server_pid else None)
         # The ownership check is live: another session's node is refused.
-        await other.create("/fleet/foreign", b"{}", flags=CreateFlag.EPHEMERAL)
-        (foreign,) = await client.heartbeat_many([["/fleet/foreign"]])
+        await other.create(f"{root}/foreign", b"{}", flags=CreateFlag.EPHEMERAL)
+        (foreign,) = await client.heartbeat_many([[f"{root}/foreign"]])
         check(isinstance(foreign, OwnershipError), f"foreign probe gave {foreign!r}")
     finally:
         await other.close()
         await client.close()
-    emit({
-        "phase": "fleet",
+    return {
         "ephemerals": len(ephemerals),
-        "multi_chunk": MULTI_CHUNK,
         "create_s": create_s,
-        "sweep": f"{FLEET_SERVICES} services x {FLEET_NODES_PER_SERVICE} znodes",
+        "sweep": f"{services} services x {per_service} znodes",
+        "sweeps": len(sweeps),
         "sweep_ms_median": statistics.median(sweeps),
         "sweep_ms": sweeps,
         "sweep_client_cpu_share": client_share,
         "sweep_server_cpu_share": server_share,
-        **where,
-    })
+    }
+
+
+async def phase_fleet(port: int, where: dict, server_pid=None) -> None:
+    runs = [await fleet_run(port, services, per_service, server_pid)
+            for services, per_service in FLEET_SIZES]
+    emit({"phase": "fleet", "multi_chunk": MULTI_CHUNK, "runs": runs, **where})
 
 
 # --- phase 5: the daemon ----------------------------------------------------
@@ -902,26 +925,37 @@ STORM_TIMEOUT_S = 2.0
 #: the tier's answer TTLs, from docs/CONTRACT.md: a service A answer is
 #: min(SRV-chain TTL, host TTL), SRV answers carry the service's ttl
 A_TTL, SRV_TTL = 30, 60
+#: the longest DNS message of each transport: the tier's udpPayloadMax
+#: (etc/config.example.json) over UDP, the 2-byte length prefix over TCP;
+#: the tier sends a longer answer as TC with no records
+UDP_PAYLOAD_MAX, TCP_MSG_MAX = 1232, 65535
 
 
-def serve_domains() -> list:
-    """16 domain names that cover every slice of both the 4-shard and
-    the 5-shard ring, so that every worker carries traffic before and
-    after the reshard: coverage first, then the next names in order."""
+def ring_domains(suffix: str, count: int, shard_counts) -> list:
+    """``count`` names ``<k>.<suffix>`` that cover every slice of the ring
+    at each of ``shard_counts``, so that every worker carries traffic:
+    coverage first, then the next names in order."""
     from registrar_tpu_torch.shard import HashRing
 
-    rings = [HashRing(range(SHARDS)), HashRing(range(RESHARDS))]
-    names = [f"{k}.{SERVE_SUFFIX}" for k in range(1, 257)]
+    rings = [HashRing(range(n)) for n in shard_counts]
+    names = [f"{k}.{suffix}" for k in range(1, 257)]
     chosen, covered = [], set()
     for name in names:
         slots = {(len(r.shard_ids), r.owner(name)) for r in rings}
         if not slots <= covered:
             chosen.append(name)
             covered |= slots
-    check(len(covered) == SHARDS + RESHARDS, f"ring slots covered: {covered}")
-    chosen += [n for n in names if n not in chosen][:SERVE_DOMAINS - len(chosen)]
-    check(len(chosen) == SERVE_DOMAINS, f"{len(chosen)} domains")
+    check(len(covered) == sum(shard_counts), f"ring slots covered: {covered}")
+    chosen += [n for n in names if n not in chosen][:count - len(chosen)]
+    check(len(chosen) == count, f"{len(chosen)} domains")
     return sorted(chosen, key=names.index)
+
+
+def serve_domains() -> list:
+    """16 domain names that cover every slice of both the 4-shard and
+    the 5-shard ring, so that every worker carries traffic before and
+    after the reshard."""
+    return ring_domains(SERVE_SUFFIX, SERVE_DOMAINS, (SHARDS, RESHARDS))
 
 
 def instance_address(d: int, i: int) -> str:
@@ -948,6 +982,28 @@ def rows(answers) -> list:
     return sorted((a.name, a.rtype, a.ttl, a.data) for a in answers)
 
 
+def a_answer_bytes(domain: str, instances: int) -> int:
+    """Bytes of the tier's A answer for ``domain`` to a query with EDNS
+    (RFC 1035 4.1, RFC 6891 6.1.2): the 12-byte header, the question
+    (the name's wire form, type and class), one record per instance (a
+    2-byte pointer to the question, type, class, TTL, length and the
+    4-byte address) and the OPT record."""
+    return 12 + (len(domain) + 2 + 4) + 16 * instances + 11
+
+
+def srv_answer_bytes(domain: str, hostnames) -> int:
+    """Bytes of the tier's ``_http._tcp.<domain>`` SRV answer to a query
+    with EDNS: the header, the question, per instance one SRV record per
+    port (a pointer to the question, type, class, TTL, length, priority,
+    weight, port and the target's wire form) and one A additional (its
+    owner's wire form, type, class, TTL, length, address), and OPT."""
+    out = 12 + (len(f"_http._tcp.{domain}") + 2 + 4) + 11
+    for host in hostnames:
+        target = len(f"{host}.{domain}") + 2
+        out += len(SERVE_PORTS) * (2 + 10 + 6 + target) + target + 10 + 4
+    return out
+
+
 def tier_config(zk_port: int, tmp: str, metrics_port: int, dns_port: int) -> dict:
     """etc/config.example.json's ``serve`` and ``cache`` blocks as written,
     with the socket in ``tmp``, the DNS frontend on a free port, the
@@ -961,6 +1017,8 @@ def tier_config(zk_port: int, tmp: str, metrics_port: int, dns_port: int) -> dic
     zookeeper["servers"] = [{"host": "127.0.0.1", "port": zk_port}]
     serve = copy.deepcopy(cfg["serve"])
     check(serve["shards"] == SHARDS, f"serve.shards {serve['shards']}")
+    check(serve["dns"]["udpPayloadMax"] == UDP_PAYLOAD_MAX,
+          f"serve.dns.udpPayloadMax {serve['dns']['udpPayloadMax']}")
     serve["socketPath"] = os.path.join(tmp, "resolve.sock")
     serve["dns"]["port"] = dns_port
     return {
@@ -1055,10 +1113,14 @@ class StormSocket(asyncio.DatagramProtocol):
 
 async def dns_storm(port: int, plan: list, expected: dict) -> dict:
     """Send ``plan`` (a list of (name, kind)) over STORM_SOCKETS connected
-    UDP sockets, STORM_WINDOW queries in flight on each.  The first reply
-    for each name is decoded and held to ``expected[name]`` (rcode and
-    records); every later reply must equal it byte for byte after the
-    id.  Returns the counts and the per-kind latencies."""
+    UDP sockets, STORM_WINDOW queries in flight on each, and follow each
+    truncated reply (TC) with one TCP exchange, as a stub resolver does.
+    ``expected[name]`` is (rcode, records, truncated), as
+    ``storm_expected`` gives it: the first reply for each name over each
+    transport is decoded and held to it (over UDP, TC with no records
+    exactly where ``truncated``), and every later one must equal it byte
+    for byte after the id.  Returns the counts and the latencies by
+    kind, ``A_TC`` for the A queries answered over TCP."""
     from registrar_tpu_torch import dnsfront
 
     loop = asyncio.get_running_loop()
@@ -1068,21 +1130,23 @@ async def dns_storm(port: int, plan: list, expected: dict) -> dict:
             StormSocket, remote_addr=("127.0.0.1", port))
         sockets.append(proto)
     canonical = {}
-    latency = {"A": [], "NXDOMAIN": []}
-    timeouts = []
+    latency = {"A": [], "A_TC": [], "NXDOMAIN": []}
+    timeouts, errors = [], []
     next_id = [0] * STORM_SOCKETS
 
-    def verify(name: str, data: bytes) -> None:
+    def verify(name: str, data: bytes, transport: str) -> None:
         body = data[2:]
-        if canonical.get(name) == body:
+        if canonical.get((name, transport)) == body:
             return
         resp = dnsfront.decode_response(data)
-        rcode, records = expected[name]
-        check(resp.rcode == rcode and not resp.tc,
-              f"storm {name}: rcode {resp.rcode} tc {resp.tc}")
+        rcode, records, truncated = expected[name]
+        tc = truncated and transport == "udp"
+        check(resp.rcode == rcode and resp.tc == tc,
+              f"storm {name} over {transport}: rcode {resp.rcode} tc {resp.tc}")
         got = sorted((n, t, ttl, text) for n, t, ttl, text in resp.answers)
-        check(got == records, f"storm {name}: answers {got[:3]}...")
-        canonical.setdefault(name, body)
+        check(got == ([] if tc else records),
+              f"storm {name} over {transport}: answers {got[:3]}...")
+        canonical.setdefault((name, transport), body)
 
     async def lane(s: int, queries: list) -> None:
         proto = sockets[s]
@@ -1102,8 +1166,21 @@ async def dns_storm(port: int, plan: list, expected: dict) -> dict:
                 proto.waiting.pop(qid, None)
                 timeouts.append(name)
                 continue
+            verify(name, data, "udp")
+            if expected[name][2]:
+                try:
+                    data = await dnsfront.query_tcp(
+                        "127.0.0.1", port, packet, timeout=STORM_TIMEOUT_S)
+                except asyncio.TimeoutError:
+                    timeouts.append(f"{name} over TCP")
+                    continue
+                except (OSError, asyncio.IncompleteReadError) as err:
+                    errors.append(f"{name} over TCP: {err!r}")
+                    continue
+                t1 = time.perf_counter()
+                verify(name, data, "tcp")
+                kind = "A_TC"
             latency[kind].append((t1 - t0) * 1e3)
-            verify(name, data)
 
     lanes = [[] for _ in range(STORM_SOCKETS * STORM_WINDOW)]
     for i, query in enumerate(plan):
@@ -1116,18 +1193,21 @@ async def dns_storm(port: int, plan: list, expected: dict) -> dict:
         for proto in sockets:
             proto.transport.close()
     wall = time.perf_counter() - t
-    return {"wall_s": wall, "timeouts": timeouts, "latency": latency}
+    return {"wall_s": wall, "timeouts": timeouts, "errors": errors,
+            "latency": latency}
 
 
-def storm_plan(domains: list) -> tuple:
-    """The seeded storm: (plan, names of the NXDOMAIN pool)."""
+def storm_plan(domains: list, queries: int = STORM_QUERIES) -> tuple:
+    """The seeded storm over ``domains``' A names: (plan, names of the
+    NXDOMAIN pool, under the domains' suffix)."""
     rng = np.random.default_rng(SEED)
     weights = 1.0 / np.arange(1, len(domains) + 1) ** STORM_ZIPF_S
     ranked = [domains[i] for i in rng.permutation(len(domains))]
-    nx_names = [f"absent{k}.{SERVE_SUFFIX}" for k in range(STORM_NX_NAMES)]
-    is_nx = rng.random(STORM_QUERIES) < STORM_NX_SHARE
-    hit = rng.choice(len(ranked), size=STORM_QUERIES, p=weights / weights.sum())
-    miss = rng.integers(0, STORM_NX_NAMES, size=STORM_QUERIES)
+    suffix = domains[0].split(".", 1)[1]
+    nx_names = [f"absent{k}.{suffix}" for k in range(STORM_NX_NAMES)]
+    is_nx = rng.random(queries) < STORM_NX_SHARE
+    hit = rng.choice(len(ranked), size=queries, p=weights / weights.sum())
+    miss = rng.integers(0, STORM_NX_NAMES, size=queries)
     plan = [
         (nx_names[m], "NXDOMAIN") if nx else (ranked[h], "A")
         for nx, h, m in zip(is_nx, hit, miss)
@@ -1135,24 +1215,170 @@ def storm_plan(domains: list) -> tuple:
     return plan, nx_names
 
 
+def storm_expected(hosts: dict, nx_names: list) -> dict:
+    """name -> (rcode, answer rows, whether the UDP answer is truncated)
+    for every name of a storm over the domains of ``hosts``."""
+    from registrar_tpu_torch import dnsfront
+
+    out = {d: (dnsfront.RCODE_NOERROR, expected_a(d, h.values()),
+               a_answer_bytes(d, len(h)) > UDP_PAYLOAD_MAX)
+           for d, h in hosts.items()}
+    out.update({n: (dnsfront.RCODE_NXDOMAIN, [], False) for n in nx_names})
+    return out
+
+
 def percentile(values: list, q: float) -> float:
     return float(np.percentile(np.asarray(values), q))
 
 
-async def stop_tier(tier, workers) -> None:
-    """Stop the tier and every worker it spawned, whatever state a failed
-    check left them in: SIGTERM, then SIGKILL for whatever still runs."""
-    workers = set(workers) | set(children(tier.proc.pid))
-    if tier.proc.poll() is None:
-        tier.proc.send_signal(signal.SIGTERM)
+def fleet_registration(example: dict, domain: str) -> dict:
+    """etc/config.example.json's registration for one instance of a
+    fleet's ``domain``: no aliases and no heartbeat interval."""
+    reg = {k: v for k, v in example.items()
+           if k not in ("aliases", "heartbeatInterval")}
+    reg["domain"] = domain
+    return reg
+
+
+async def register_instances(register, assignments: list) -> dict:
+    """``register`` (a package's ``registration.register``) every
+    instance of ``assignments``, a list of (session, [(domain, hostname,
+    address), ...]): one session's instances one after another, the
+    sessions at once.  Returns (domain, hostname) -> (session, owned
+    znodes)."""
+    with open(os.path.join(ROOT, "etc", "config.example.json")) as fh:
+        example = json.load(fh)["registration"]
+    owned = {}
+
+    async def register_all(client, instances):
+        for dom, host, addr in instances:
+            owned[(dom, host)] = (client, await register(
+                client, fleet_registration(example, dom), admin_ip=addr,
+                hostname=host, settle_delay=0))
+
+    await asyncio.gather(*(register_all(c, i) for c, i in assignments))
+    return owned
+
+
+async def check_answers(sc, hosts: dict, doms, live_too: bool = True) -> None:
+    """Each domain's A and SRV answer over the unix socket, cached (and
+    live), against docs/CONTRACT.md for the instances of ``hosts``."""
+    for dom in doms:
+        want_srv = expected_srv(dom, hosts[dom])
+        for live in ((False, True) if live_too else (False,)):
+            res = await sc.resolve(dom, "A", live=live)
+            check(rows(res.answers) == expected_a(dom, hosts[dom].values())
+                  and not res.additionals,
+                  f"A {dom} live={live}: {rows(res.answers)[:2]}")
+            res = await sc.resolve(f"_http._tcp.{dom}", "SRV", live=live)
+            check((rows(res.answers), rows(res.additionals)) == want_srv,
+                  f"SRV {dom} live={live}: {rows(res.answers)[:2]}")
+
+
+class Tier(Daemon):
+    """``zkcli serve-sharded -f tier.json`` over the ZooKeeper at
+    ``zk_port``, with ``tier_config``'s file in ``tmp``, and the worker
+    pids it has been seen to run."""
+
+    def __init__(self, zk_port: int, tmp: str) -> None:
+        self.metrics_port, self.dns_port = free_port(), free_port()
+        self.cfg = tier_config(zk_port, tmp, self.metrics_port, self.dns_port)
+        self.cfg_path = write_json(os.path.join(tmp, "tier.json"), self.cfg)
+        self.pids_seen = set()
+        super().__init__(self.cfg_path, [
+            "-m", "registrar_tpu_torch.tools.zkcli", "serve-sharded",
+            "-f", self.cfg_path])
+
+    async def status(self) -> dict:
+        return json.loads(
+            await asyncio.to_thread(http_get, self.metrics_port, "/status"))
+
+    async def up(self, n: int):
+        """The tier's /status once ``n`` shards are all up, else None."""
         try:
-            await asyncio.to_thread(tier.proc.wait, 15)
-        except subprocess.TimeoutExpired:
-            pass
-    tier.stop()
-    for pid in workers:
-        if alive(pid) and "registrar_tpu_torch.shard" in cmdline(pid):
-            os.kill(pid, signal.SIGKILL)
+            st = await self.status()
+        except OSError:
+            return None
+        shards = st.get("shards") or {}
+        if (len(shards) == n and all(s["up"] for s in shards.values())
+                and not st["shards_down"]):
+            return st
+        return None
+
+    async def started(self) -> tuple:
+        """Wait until SHARDS workers are up, each a module of the port,
+        and ``zkcli status`` says so too: (/status, seconds from spawn
+        until the shards were up)."""
+        st = await wait_until(lambda: self.up(SHARDS), "the tier to start")
+        start_s = time.perf_counter() - self.t0
+        check(st["serve"]["dns"]["port"] == self.dns_port,
+              f"dns {st['serve']['dns']}")
+        proc = await asyncio.to_thread(zkcli, "status", "-f", self.cfg_path)
+        check(proc.returncode == 0, f"zkcli status exited {proc.returncode}: "
+              f"{proc.stderr}")
+        up = re.findall(r"^zkcli: status: shard (\d+) up ", proc.stderr, re.M)
+        check(sorted(up) == [str(i) for i in range(SHARDS)],
+              f"zkcli status shard lines {up}: {proc.stderr}")
+        worker_pids = sorted(s["pid"] for s in st["shards"].values())
+        self.pids_seen.update(worker_pids)
+        check(children(self.proc.pid) == worker_pids,
+              f"tier children {children(self.proc.pid)} vs {worker_pids}")
+        for pid in worker_pids:
+            argv = cmdline(pid)
+            check(argv[1:3] == ["-m", "registrar_tpu_torch.shard"],
+                  f"worker {pid} runs {argv[:3]}")
+        return st, start_s
+
+    async def sigterm(self) -> float:
+        """SIGTERM the tier: it must exit 0 and leave no worker behind.
+        Returns the seconds it took to exit."""
+        t = time.perf_counter()
+        rc = await self.signal_and_wait(signal.SIGTERM)
+        stop_s = time.perf_counter() - t
+        check(rc == 0, f"tier exited {rc} on SIGTERM: {self.tail()}")
+        left = [pid for pid in sorted(self.pids_seen) if alive(pid)
+                and "registrar_tpu_torch.shard" in cmdline(pid)]
+        check(left == [], f"workers left behind: {left}")
+        return stop_s
+
+    async def stop_all(self) -> None:
+        """Stop the tier and every worker it spawned, whatever state a
+        failed check left them in: SIGTERM, then SIGKILL for whatever
+        still runs."""
+        workers = self.pids_seen | set(children(self.proc.pid))
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                await asyncio.to_thread(self.proc.wait, 15)
+            except subprocess.TimeoutExpired:
+                pass
+        self.stop()
+        for pid in workers:
+            if alive(pid) and "registrar_tpu_torch.shard" in cmdline(pid):
+                os.kill(pid, signal.SIGKILL)
+
+
+def storm_counts(before: dict, after: dict) -> tuple:
+    """From the tier's /status before and after a storm: the DNS queries
+    each shard answered in between, and the encode-cache hit ratio since
+    the tier started.  Fails if the tier shed anything."""
+    def dns_counts(snapshot):
+        return {sid: s["dns"] for sid, s in snapshot["shards"].items()}
+
+    hits = misses = 0
+    per_shard = {}
+    for sid, dns in dns_counts(after).items():
+        prev = dns_counts(before).get(sid) or {"queries": {}}
+        per_shard[sid] = (sum(dns["queries"].values())
+                          - sum(prev["queries"].values()))
+        hits += dns["encode_cache"]["hits"]
+        misses += dns["encode_cache"]["misses"]
+    sheds = after["serve"]["sheds_total"]
+    dns_sheds = {sid: dns["sheds"] for sid, dns in dns_counts(after).items()}
+    check(not any(sheds.values())
+          and not any(any(v.values()) for v in dns_sheds.values()),
+          f"sheds {sheds}, DNS sheds {dns_sheds}")
+    return per_shard, hits / (hits + misses)
 
 
 async def phase_serve(port: int, where: dict) -> None:
@@ -1168,10 +1394,7 @@ async def phase_serve(port: int, where: dict) -> None:
               for i in range(SERVE_INSTANCES)}
         for d, dom in enumerate(domains)
     }
-    with open(os.path.join(ROOT, "etc", "config.example.json")) as fh:
-        example = json.load(fh)["registration"]
     sessions, tier, sc = [], None, None
-    pids_seen = set()
     out = {"phase": "serve", "domains": len(domains),
            "instances": len(domains) * SERVE_INSTANCES}
     t_phase = time.perf_counter()
@@ -1180,79 +1403,22 @@ async def phase_serve(port: int, where: dict) -> None:
         t = time.perf_counter()
         for dom in domains:
             sessions.append(await ZKClient(servers).connect())
-        owned = {}
-
-        async def register_domain(client, dom):
-            reg = {k: v for k, v in example.items()
-                   if k not in ("aliases", "heartbeatInterval")}
-            reg["domain"] = dom
-            for host, addr in hosts[dom].items():
-                owned[(dom, host)] = await register(
-                    client, reg, admin_ip=addr, hostname=host, settle_delay=0)
-
-        await asyncio.gather(*(register_domain(c, d)
-                               for c, d in zip(sessions, domains)))
+        owned = await register_instances(register, [
+            (client, [(dom, h, a) for h, a in hosts[dom].items()])
+            for client, dom in zip(sessions, domains)])
         out["register_s"] = time.perf_counter() - t
         check(len(owned) == len(domains) * SERVE_INSTANCES, f"{len(owned)} registered")
 
         with tempfile.TemporaryDirectory() as tmp:
-            metrics_port, dns_port = free_port(), free_port()
-            cfg = tier_config(port, tmp, metrics_port, dns_port)
-            cfg_path = write_json(os.path.join(tmp, "tier.json"), cfg)
-
-            async def status():
-                return json.loads(
-                    await asyncio.to_thread(http_get, metrics_port, "/status"))
-
-            async def tier_up(n):
-                try:
-                    st = await status()
-                except OSError:
-                    return None
-                shards = st.get("shards") or {}
-                if (len(shards) == n and all(s["up"] for s in shards.values())
-                        and not st["shards_down"]):
-                    return st
-                return None
-
             # 1. start
-            tier = Daemon(cfg_path, ["-m", "registrar_tpu_torch.tools.zkcli",
-                                     "serve-sharded", "-f", cfg_path])
-            st = await wait_until(lambda: tier_up(SHARDS), "the tier to start")
-            out["tier_start_s"] = time.perf_counter() - tier.t0
-            check(st["serve"]["dns"]["port"] == dns_port, f"dns {st['serve']['dns']}")
-            proc = await asyncio.to_thread(zkcli, "status", "-f", cfg_path)
-            check(proc.returncode == 0, f"zkcli status exited {proc.returncode}: "
-                  f"{proc.stderr}")
-            up = re.findall(r"^zkcli: status: shard (\d+) up ", proc.stderr, re.M)
-            check(sorted(up) == [str(i) for i in range(SHARDS)],
-                  f"zkcli status shard lines {up}: {proc.stderr}")
-            worker_pids = sorted(s["pid"] for s in st["shards"].values())
-            pids_seen.update(worker_pids)
-            check(children(tier.proc.pid) == worker_pids,
-                  f"tier children {children(tier.proc.pid)} vs {worker_pids}")
-            for pid in worker_pids:
-                argv = cmdline(pid)
-                check(argv[1:3] == ["-m", "registrar_tpu_torch.shard"],
-                      f"worker {pid} runs {argv[:3]}")
+            tier = Tier(port, tmp)
+            st, out["tier_start_s"] = await tier.started()
+            cfg, cfg_path, dns_port = tier.cfg, tier.cfg_path, tier.dns_port
 
             # 2. unix-socket answers, cached and live
             sc = await ShardClient(cfg["serve"]["socketPath"]).connect()
-
-            async def check_answers(doms, live_too=True):
-                for dom in doms:
-                    want_srv = expected_srv(dom, hosts[dom])
-                    for live in ((False, True) if live_too else (False,)):
-                        res = await sc.resolve(dom, "A", live=live)
-                        check(rows(res.answers) == expected_a(dom, hosts[dom].values())
-                              and not res.additionals,
-                              f"A {dom} live={live}: {rows(res.answers)[:2]}")
-                        res = await sc.resolve(f"_http._tcp.{dom}", "SRV", live=live)
-                        check((rows(res.answers), rows(res.additionals)) == want_srv,
-                              f"SRV {dom} live={live}: {rows(res.answers)[:2]}")
-
             t = time.perf_counter()
-            await check_answers(domains)
+            await check_answers(sc, hosts, domains)
             out["unix_answers_s"] = time.perf_counter() - t
             out["unix_resolves_checked"] = len(domains) * 4
 
@@ -1293,10 +1459,8 @@ async def phase_serve(port: int, where: dict) -> None:
 
             # 4. the DNS storm over the SO_REUSEPORT group
             plan, nx_names = storm_plan(domains)
-            expected = {d: (dnsfront.RCODE_NOERROR, expected_a(d, hosts[d].values()))
-                        for d in domains}
-            expected.update({n: (dnsfront.RCODE_NXDOMAIN, []) for n in nx_names})
-            before = await status()
+            expected = storm_expected(hosts, nx_names)
+            before = await tier.status()
             workers = {sid: s["pid"] for sid, s in before["shards"].items()}
             cpu0 = {sid: cpu_seconds(pid) for sid, pid in workers.items()}
             client0 = time.process_time()
@@ -1304,28 +1468,13 @@ async def phase_serve(port: int, where: dict) -> None:
             client_cpu = time.process_time() - client0
             worker_cpu = {sid: cpu_seconds(pid) - cpu0[sid]
                           for sid, pid in workers.items()}
-            after = await status()
-            check(storm["timeouts"] == [],
-                  f"{len(storm['timeouts'])} storm queries timed out")
-
-            def dns_counts(snapshot):
-                return {sid: s["dns"] for sid, s in snapshot["shards"].items()}
-
-            hits = misses = 0
-            per_shard = {}
-            for sid, dns in dns_counts(after).items():
-                prev = dns_counts(before).get(sid) or {"queries": {}}
-                per_shard[sid] = (sum(dns["queries"].values())
-                                  - sum(prev["queries"].values()))
-                hits += dns["encode_cache"]["hits"]
-                misses += dns["encode_cache"]["misses"]
+            after = await tier.status()
+            check(storm["timeouts"] == [] and storm["errors"] == [],
+                  f"{len(storm['timeouts'])} storm queries timed out, "
+                  f"errors {storm['errors'][:3]}")
+            per_shard, hit_ratio = storm_counts(before, after)
             check(sum(per_shard.values()) == STORM_QUERIES,
                   f"tier counted {per_shard} of {STORM_QUERIES} storm queries")
-            sheds = after["serve"]["sheds_total"]
-            dns_sheds = {sid: dns["sheds"] for sid, dns in dns_counts(after).items()}
-            check(not any(sheds.values())
-                  and not any(any(v.values()) for v in dns_sheds.values()),
-                  f"sheds {sheds}, DNS sheds {dns_sheds}")
             n_nx = len(storm["latency"]["NXDOMAIN"])
             out.update({
                 "storm_queries": STORM_QUERIES,
@@ -1342,15 +1491,15 @@ async def phase_serve(port: int, where: dict) -> None:
                 "storm_client_cpu_share": client_cpu / storm["wall_s"],
                 "storm_worker_cpu_share": {
                     sid: cpu / storm["wall_s"] for sid, cpu in worker_cpu.items()},
-                "encode_cache_hit_ratio": hits / (hits + misses),
+                "encode_cache_hit_ratio": hit_ratio,
             })
 
             # 5. coherence: one instance leaves, the cached answer drops it
             victim_dom, victim = domains[0], "lb-00"
             victim_addr = hosts[victim_dom].pop(victim)
-            session = sessions[0]
+            session, znodes = owned[(victim_dom, victim)]
             t = time.perf_counter()
-            await unregister(session, [owned[(victim_dom, victim)][0]])
+            await unregister(session, [znodes[0]])
             acked = time.perf_counter()
 
             async def dropped():
@@ -1373,7 +1522,7 @@ async def phase_serve(port: int, where: dict) -> None:
             await wait_until(dns_dropped, "the DNS answer to drop the instance",
                              timeout=10)
             out["coherence_dns_lag_ms"] = (time.perf_counter() - acked) * 1e3
-            await check_answers([victim_dom])
+            await check_answers(sc, hosts, [victim_dom])
 
             # 6. reshard 4 -> 5 under a polling resolver
             poll = {"n": 0, "errors": []}
@@ -1409,7 +1558,7 @@ async def phase_serve(port: int, where: dict) -> None:
                 return next(filter(None, map(handoff.search, list(tier.errors))), None)
 
             m = await wait_until(resharded, "the reshard", timeout=30)
-            st = await wait_until(lambda: tier_up(RESHARDS), "5 shards up")
+            st = await wait_until(lambda: tier.up(RESHARDS), "5 shards up")
             out["reshard_s"] = time.perf_counter() - t
             check(int(m.group(1)) == RESHARDS, m.group(0))
             check(st["serve"]["generation"] > generation, f"generation {st['serve']}")
@@ -1425,14 +1574,14 @@ async def phase_serve(port: int, where: dict) -> None:
             # every slice of the 5-shard ring answers its own domains
             ring = HashRing(range(RESHARDS))
             before = {sid: s["resolves_total"] for sid, s in st["shards"].items()}
-            await check_answers(domains, live_too=False)
-            st = await status()
+            await check_answers(sc, hosts, domains, live_too=False)
+            st = await tier.status()
             moved_on = {sid for sid, s in st["shards"].items()
                         if s["resolves_total"] > before[sid]}
             check(moved_on == {str(ring.owner(d)) for d in domains}
                   == {str(i) for i in range(RESHARDS)},
                   f"shards that answered after the reshard: {sorted(moved_on)}")
-            pids_seen.update(s["pid"] for s in st["shards"].values())
+            tier.pids_seen.update(s["pid"] for s in st["shards"].values())
 
             # 7. crash: kill -9 one worker; it respawns and answers resume
             victim_sid = "0"
@@ -1442,7 +1591,7 @@ async def phase_serve(port: int, where: dict) -> None:
             os.kill(old_pid, signal.SIGKILL)
 
             async def respawned():
-                now = await tier_up(RESHARDS)
+                now = await tier.up(RESHARDS)
                 if now and now["shards"][victim_sid]["pid"] != old_pid:
                     return now
                 return None
@@ -1454,30 +1603,330 @@ async def phase_serve(port: int, where: dict) -> None:
             new_pid = st["shards"][victim_sid]["pid"]
             check(cmdline(new_pid)[1:3] == ["-m", "registrar_tpu_torch.shard"],
                   f"respawned worker runs {cmdline(new_pid)[:3]}")
-            pids_seen.update(s["pid"] for s in st["shards"].values())
-            await check_answers([d for d in domains if str(ring.owner(d)) == victim_sid])
+            tier.pids_seen.update(s["pid"] for s in st["shards"].values())
+            await check_answers(
+                sc, hosts, [d for d in domains if str(ring.owner(d)) == victim_sid])
             out["resumed_s"] = time.perf_counter() - t
 
             # 8. stop
             await sc.close()
             sc = None
-            t = time.perf_counter()
-            rc = await tier.signal_and_wait(signal.SIGTERM)
-            out["stop_s"] = time.perf_counter() - t
-            check(rc == 0, f"tier exited {rc} on SIGTERM: {tier.tail()}")
-            left = [pid for pid in sorted(pids_seen) if alive(pid)
-                    and "registrar_tpu_torch.shard" in cmdline(pid)]
-            check(left == [], f"workers left behind: {left}")
-            out["workers_seen"] = len(pids_seen)
+            out["stop_s"] = await tier.sigterm()
+            out["workers_seen"] = len(tier.pids_seen)
             out["phase_s"] = time.perf_counter() - t_phase
     finally:
         if sc is not None:
             await sc.close()
         if tier is not None:
-            await stop_tier(tier, pids_seen)
+            await tier.stop_all()
         for client in sessions:
             await client.close()
     emit({**out, **where})
+
+
+# --- the region: the main path at a region's size ---------------------------
+
+#: A region: 64 service domains under one suffix holding 10 000 load
+#: balancers in the registration shape of etc/config.example.json, the
+#: deep end of the reference's heartbeat matrix (bench.py:1296-1304,
+#: docs/PERF.md "The 1k-10k matrix").  Domain sizes follow a seeded Zipf
+#: law, a region's few large services (storage, moray, webapi) beside
+#: many small ones, so that some A answers outgrow a UDP datagram and
+#: some SRV answers a TCP message.
+REGION_SUFFIX = "region.us-east.example.com"
+REGION_DOMAINS, REGION_INSTANCES = 64, 10_000
+REGION_ZIPF_S = 1.1
+REGION_MIN, REGION_MAX = 5, 1000
+#: 1 000 sessions of 10 instances, ten times the reference's
+#: concurrent_agents_100 (one registrar per zone would be 10 000)
+REGION_PER_SESSION = 10
+REGION_SESSIONS = REGION_INSTANCES // REGION_PER_SESSION
+REGION_HEARTBEAT_ROUNDS = 10
+#: open files the phase needs per session: its socket here and in the
+#: ZooKeeper child, and room for the tier's and the storm's
+REGION_FILES_PER_SESSION = 4
+
+
+def zipf_split(domains: int, instances: int) -> list:
+    """``instances`` split over ``domains`` ranks by a Zipf law of
+    exponent REGION_ZIPF_S, largest first, each share at least
+    REGION_MIN and at most REGION_MAX: what a share would hold past
+    REGION_MAX goes to the others by their weights, and the fractions
+    are rounded by largest remainder, so that the sizes sum to
+    ``instances``."""
+    check(REGION_MIN * domains <= instances < REGION_MAX * domains,
+          f"{instances} instances cannot fill {domains} domains")
+    weights = 1.0 / np.arange(1, domains + 1) ** REGION_ZIPF_S
+    sizes = np.full(domains, float(REGION_MIN))
+    free = np.ones(domains, dtype=bool)
+    rest = instances - REGION_MIN * domains
+    while True:
+        share = rest * weights * free / (weights * free).sum()
+        over = free & (sizes + share > REGION_MAX)
+        if not over.any():
+            break
+        rest -= (REGION_MAX - sizes[over]).sum()
+        sizes[over] = REGION_MAX
+        free &= ~over
+    sizes += share
+    whole = np.floor(sizes).astype(int)
+    largest_remainder = np.argsort(whole - sizes, kind="stable")
+    whole[largest_remainder[:instances - whole.sum()]] += 1
+    return [int(n) for n in whole]
+
+
+def region_address(d: int, i: int) -> str:
+    """Instance ``i`` of domain ``d``, unique for d < 256 and i < 65 536
+    (instance_address runs out of its last octet past 245)."""
+    return f"10.{d}.{i // 256}.{i % 256}"
+
+
+def region_plan(domains: int = REGION_DOMAINS,
+                instances: int = REGION_INSTANCES,
+                shard_counts=(SHARDS,)) -> dict:
+    """The region: domain -> {hostname: address}, in domain order.  The
+    domains cover every slice of the ring at each of ``shard_counts``
+    and take the Zipf sizes in an order seeded from SEED."""
+    names = ring_domains(REGION_SUFFIX, domains, shard_counts)
+    sizes = zipf_split(domains, instances)
+    order = np.random.default_rng(SEED).permutation(domains)
+    return {
+        name: {f"lb-{i:04d}": region_address(d, i)
+               for i in range(sizes[order[d]])}
+        for d, name in enumerate(names)
+    }
+
+
+def raise_open_files(sessions: int) -> int:
+    """Raise this process's soft limit on open files to the hard one,
+    which the children started after it inherit.  Fails if the hard
+    limit is under REGION_FILES_PER_SESSION per session."""
+    _soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    need = REGION_FILES_PER_SESSION * sessions
+    check(hard == resource.RLIM_INFINITY or hard >= need,
+          f"the hard limit on open files is {hard}, under the {need} that "
+          f"{sessions} ZooKeeper sessions need: raise it (ulimit -Hn) and "
+          "run again")
+    limit = hard if hard != resource.RLIM_INFINITY else max(need, 1 << 20)
+    resource.setrlimit(resource.RLIMIT_NOFILE, (limit, hard))
+    return limit
+
+
+def rss_mb(pid: int) -> float:
+    """Resident set size of a process, from /proc."""
+    with open(f"/proc/{pid}/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise SmokeError(f"no VmRSS for pid {pid}")
+
+
+async def region_run(port: int, server_pid: int) -> dict:
+    from registrar_tpu_torch import dnsfront
+    from registrar_tpu_torch.registration import register, unregister
+    from registrar_tpu_torch.shard import ShardClient
+    from registrar_tpu_torch.zk.client import ZKClient
+
+    hosts = region_plan()
+    domains = list(hosts)
+    sizes = {d: len(h) for d, h in hosts.items()}
+    big = max(domains, key=sizes.get)
+    instances = [(d, h, a) for d in domains for h, a in hosts[d].items()]
+    out = {
+        "phase": "region",
+        "domains": len(domains),
+        "instances": len(instances),
+        "sessions": REGION_SESSIONS,
+        "instances_per_session": REGION_PER_SESSION,
+        "domain_sizes": sorted(sizes.values(), reverse=True),
+        "domains_a_over_udp": sum(a_answer_bytes(d, n) > UDP_PAYLOAD_MAX
+                                  for d, n in sizes.items()),
+        "domains_srv_over_tcp": sum(srv_answer_bytes(d, hosts[d]) > TCP_MSG_MAX
+                                    for d in domains),
+    }
+    check(len(instances) == REGION_INSTANCES, f"{len(instances)} instances")
+    check(out["domains_srv_over_tcp"] >= 1
+          and srv_answer_bytes(big, hosts[big]) > TCP_MSG_MAX,
+          "no domain's SRV answer outgrows a TCP message")
+    sessions, tier, sc = [], None, None
+    t_phase = time.perf_counter()
+    try:
+        t = time.perf_counter()
+        for _ in range(REGION_SESSIONS):
+            sessions.append(await ZKClient([("127.0.0.1", port)]).connect())
+        out["connect_s"] = time.perf_counter() - t
+        assignments = [
+            (client, instances[k * REGION_PER_SESSION:(k + 1) * REGION_PER_SESSION])
+            for k, client in enumerate(sessions)]
+        t = time.perf_counter()
+        owned = await register_instances(register, assignments)
+        out["register_s"] = time.perf_counter() - t
+        out["registrations_per_s"] = len(instances) / out["register_s"]
+        check(len(owned) == len(instances), f"{len(owned)} registered")
+
+        # the standing load: every session sweeps its owned znodes at once
+        sweeps = [(client, [owned[(d, h)][1] for d, h, _a in chunk])
+                  for client, chunk in assignments]
+        rounds = []
+        client0, server0 = time.process_time(), cpu_seconds(server_pid)
+        for _ in range(REGION_HEARTBEAT_ROUNDS):
+            t = time.perf_counter()
+            results = await asyncio.gather(*(
+                client.heartbeat_many(groups) for client, groups in sweeps))
+            rounds.append((time.perf_counter() - t) * 1e3)
+            failed = [o for r in results for o in r if o is not None]
+            check(failed == [], f"{len(failed)} heartbeats failed: {failed[:3]}")
+        rounds_s = sum(rounds) / 1e3
+        out.update({
+            "heartbeat_exists_per_round": sum(len(z) for _c, g in sweeps for z in g),
+            "region_heartbeat_round_ms_median": statistics.median(rounds),
+            "region_heartbeat_round_ms_max": max(rounds),
+            "region_heartbeat_round_ms": rounds,
+            "heartbeat_client_cpu_share": (time.process_time() - client0) / rounds_s,
+            "heartbeat_server_cpu_share": (cpu_seconds(server_pid) - server0) / rounds_s,
+        })
+
+        with tempfile.TemporaryDirectory() as tmp:
+            tier = Tier(port, tmp)
+            _st, out["tier_start_s"] = await tier.started()
+
+            # every domain's answers over the unix socket, cached and live
+            sc = await ShardClient(tier.cfg["serve"]["socketPath"]).connect()
+            t = time.perf_counter()
+            await check_answers(sc, hosts, domains)
+            out["unix_answers_s"] = time.perf_counter() - t
+            out["unix_resolves_checked"] = len(domains) * 4
+
+            # the largest domain through zkcli dig: its A answer is TC over
+            # UDP and whole over TCP; its SRV answer outgrows a TCP message
+            # and is TC with no records there too (the reference's limit)
+            server = f"127.0.0.1:{tier.dns_port}"
+            digs = {
+                "udp_a": ["--server", server, big],
+                "tcp_a": ["--tcp", "--server", server, big],
+                "tcp_srv": ["--tcp", "--server", server, f"_http._tcp.{big}"],
+            }
+            results = await asyncio.gather(*(
+                asyncio.to_thread(zkcli, "dig", *a) for a in digs.values()))
+            dig = dict(zip(digs, results))
+            for key, transport in (("udp_a", "(UDP->TCP)"), ("tcp_a", "(TCP)")):
+                p = dig[key]
+                check(p.returncode == 0 and "status: NOERROR," in p.stdout
+                      and transport in p.stdout,
+                      f"dig {key}: {p.returncode} {p.stdout[-300:]} {p.stderr}")
+                check(dig_records(p.stdout, "ANSWER")
+                      == expected_a(big, hosts[big].values()), f"dig {key} answers")
+            check(";; truncated: retrying over TCP" in dig["udp_a"].stderr,
+                  f"a {sizes[big]}-record A answer did not truncate over UDP")
+            p = dig["tcp_srv"]
+            flags = re.search(r"^;; flags: ([a-z ]*);", p.stdout, re.M)
+            check(p.returncode == 1 and "status: NOERROR," in p.stdout
+                  and flags and "tc" in flags.group(1).split()
+                  and dig_records(p.stdout, "ANSWER") == [],
+                  f"dig tcp_srv: {p.returncode} {p.stdout} {p.stderr}")
+            out["dig_checked"] = sorted(digs)
+
+            # the storm: a stub resolver's view, TC followed over TCP
+            plan, nx_names = storm_plan(domains)
+            expected = storm_expected(hosts, nx_names)
+            before = await tier.status()
+            workers = {sid: s["pid"] for sid, s in before["shards"].items()}
+            cpu0 = {sid: cpu_seconds(pid) for sid, pid in workers.items()}
+            client0 = time.process_time()
+            storm = await dns_storm(tier.dns_port, plan, expected)
+            client_cpu = time.process_time() - client0
+            worker_cpu = {sid: cpu_seconds(pid) - cpu0[sid]
+                          for sid, pid in workers.items()}
+            after = await tier.status()
+            check(storm["timeouts"] == [] and storm["errors"] == [],
+                  f"{len(storm['timeouts'])} storm queries timed out "
+                  f"({storm['timeouts'][:3]}), errors {storm['errors'][:3]}")
+            latency = storm["latency"]
+            n_tc = len(latency["A_TC"])
+            check(n_tc == sum(expected[name][2] for name, _kind in plan) > 0,
+                  f"{n_tc} storm queries took TC")
+            per_shard, hit_ratio = storm_counts(before, after)
+            check(sum(per_shard.values()) == STORM_QUERIES + n_tc,
+                  f"tier counted {per_shard} of {STORM_QUERIES} storm queries "
+                  f"and {n_tc} over TCP")
+            out.update({
+                "storm_queries": STORM_QUERIES,
+                "storm_nxdomain": len(latency["NXDOMAIN"]),
+                "storm_tc": n_tc,
+                "tc_share": n_tc / STORM_QUERIES,
+                "storm_timeouts": len(storm["timeouts"]),
+                "storm_wrong_answers": 0,  # a wrong answer fails the phase
+                "storm_in_flight": STORM_SOCKETS * STORM_WINDOW,
+                "storm_s": storm["wall_s"],
+                "storm_qps": STORM_QUERIES / storm["wall_s"],
+                "storm_a_udp_p50_ms": percentile(latency["A"], 50),
+                "storm_a_udp_p99_ms": percentile(latency["A"], 99),
+                "storm_a_tc_tcp_p50_ms": percentile(latency["A_TC"], 50),
+                "storm_a_tc_tcp_p99_ms": percentile(latency["A_TC"], 99),
+                "storm_nxdomain_p99_ms": percentile(latency["NXDOMAIN"], 99),
+                "storm_queries_by_shard": per_shard,
+                "storm_client_cpu_share": client_cpu / storm["wall_s"],
+                "storm_worker_cpu_share": {
+                    sid: cpu / storm["wall_s"] for sid, cpu in worker_cpu.items()},
+                "encode_cache_hit_ratio": hit_ratio,
+            })
+
+            # coherence: one instance of the largest domain leaves; the
+            # cached A answer, read over TCP, drops it
+            victim = next(iter(hosts[big]))
+            victim_addr = hosts[big].pop(victim)
+            session, znodes = owned[(big, victim)]
+            query = dnsfront.build_query(
+                7, big, dnsfront.QTYPE_A, edns_size=dnsfront.DEFAULT_UDP_PAYLOAD_MAX)
+
+            async def dropped():
+                resp = dnsfront.decode_response(await dnsfront.query_tcp(
+                    "127.0.0.1", tier.dns_port, query))
+                return resp if victim_addr not in {r[3] for r in resp.answers} else None
+
+            t = time.perf_counter()
+            await unregister(session, [znodes[0]])
+            acked = time.perf_counter()
+            resp = await wait_until(
+                dropped, "the cached A answer to drop the instance")
+            out["region_coherence_lag_ms"] = (time.perf_counter() - acked) * 1e3
+            out["region_coherence_write_ms"] = (acked - t) * 1e3
+            check(sorted(resp.answers) == expected_a(big, hosts[big].values()),
+                  f"A {big} over TCP after the unregister")
+            await check_answers(sc, hosts, [big])
+
+            st = await tier.status()
+            out["worker_rss_mb"] = {sid: rss_mb(s["pid"])
+                                    for sid, s in st["shards"].items()}
+            out["router_rss_mb"] = rss_mb(tier.proc.pid)
+            await sc.close()
+            sc = None
+            out["stop_s"] = await tier.sigterm()
+            out["workers_left"] = 0  # one left behind fails the phase
+            out["phase_s"] = time.perf_counter() - t_phase
+    finally:
+        if sc is not None:
+            await sc.close()
+        if tier is not None:
+            await tier.stop_all()
+        await asyncio.gather(*(client.close() for client in sessions))
+    return out
+
+
+def phase_region(where: dict) -> None:
+    """The main path at a region's size: a fresh ZooKeeper child holding
+    only the region (``region_plan``), registered through
+    ``registration.register`` over REGION_SESSIONS sessions, swept by
+    every session at once, and served by ``zkcli serve-sharded`` with
+    phase 6's tier config, whose answers are held to docs/CONTRACT.md
+    over the unix socket, through ``zkcli dig`` and under a storm whose
+    client follows TC over TCP.  The card does no work in this phase:
+    registrar keeps no state on a device, so the size that must be real
+    is the cluster's."""
+    open_files = raise_open_files(REGION_SESSIONS)
+    with ZooKeeperChild() as zk:
+        out = asyncio.run(region_run(zk.port, zk.proc.pid))
+    emit({**out, "open_files_limit": open_files, **where})
 
 
 # --- phase 7: the training step ---------------------------------------------
@@ -2058,6 +2507,7 @@ def main() -> int:
     phase_model(where)
     with ZooKeeperChild() as zk:
         asyncio.run(host_phases(zk.port, where, zk.proc.pid))
+    phase_region(where)
     phase_train(where)
     phase_slo(where)
     phase_bench(where)

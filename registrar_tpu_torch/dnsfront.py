@@ -125,7 +125,7 @@ _U16 = struct.Struct(">H")
 
 MAX_LABEL_LEN = 63
 MAX_NAME_LEN = 255
-MAX_RRS = 256          # decode-side bound on peer RR counts
+MAX_RRS = 256          # bound on a query's additional records
 MAX_PTR_JUMPS = 16     # compression-pointer chain bound
 MIN_UDP_PAYLOAD = 512  # the classic pre-EDNS ceiling
 MAX_UDP_PAYLOAD = 4096  # clamp on a peer's advertised EDNS size
@@ -509,7 +509,10 @@ def decode_response(pkt: bytes) -> DnsResponse:
     if len(pkt) < _DNS_HDR.size:
         raise DnsFormatError("short header")
     qid, flags, qd, an, ns, ar = _DNS_HDR.unpack_from(pkt, 0)
-    if qd > 1 or an > MAX_RRS or ns > MAX_RRS or ar > MAX_RRS:
+    # A record takes at least a root name and its fixed fields, so the
+    # packet bounds the counts: an answer over TCP for a large service
+    # carries thousands of A records.
+    if qd > 1 or an + ns + ar > (len(pkt) - _DNS_HDR.size) // (1 + _RR_FIXED.size):
         raise DnsFormatError("RR counts out of bounds", qid=qid)
     pos = _DNS_HDR.size
     qname, qtype = "", 0
@@ -613,6 +616,11 @@ class EncodeCache:
         self.max_entries = max_entries
         self._templates: Dict[Tuple[str, int], bytes] = {}
         self._by_domain: Dict[str, set] = {}
+        #: base domain -> [misses resolving it, invalidations since the
+        #: first of them began]: a template whose resolve overlapped an
+        #: invalidation of its domain may hold what the invalidation
+        #: dropped, with no watch left to drop it again, so it is not kept
+        self._filling: Dict[str, List[int]] = {}
         self.hits = 0
         self.misses = 0
         self.invalidations = 0
@@ -657,10 +665,33 @@ class EncodeCache:
             if not keys:
                 del self._by_domain[dom]
 
+    def fill_started(self, lname: str) -> Tuple[str, int]:
+        """A miss for ``lname`` starts resolving: the token that
+        :meth:`fill_done` takes."""
+        base = self.base_domain(lname)
+        slot = self._filling.setdefault(base, [0, 0])
+        slot[0] += 1
+        return base, slot[1]
+
+    def fill_done(self, token: Tuple[str, int], key: Tuple[str, int],
+                  template: Optional[bytes]) -> None:
+        """The miss behind ``token`` ended: keep ``template`` (None:
+        nothing to keep) unless its domain was invalidated meanwhile."""
+        base, seen = token
+        slot = self._filling[base]
+        slot[0] -= 1
+        if slot[0] == 0:
+            del self._filling[base]
+        if template is not None and slot[1] == seen:
+            self.put(key, template)
+
     def invalidate_domain(self, domain: str) -> None:
         """Drop every template indexed under ``domain`` — called with
         the invalidated znode's own domain AND its parent, so instance-
         child churn under a service node drops the parent's answers."""
+        slot = self._filling.get(domain)
+        if slot is not None:
+            slot[1] += 1
         keys = self._by_domain.pop(domain, None)
         if not keys:
             return
@@ -673,6 +704,8 @@ class EncodeCache:
             self.flushes += 1
         self._templates.clear()
         self._by_domain.clear()
+        for slot in self._filling.values():
+            slot[1] += 1
 
     def stats(self) -> dict:
         return {
@@ -777,9 +810,11 @@ class DnsFront:
         """Subscribe the encode cache to the watch events that keep it
         coherent.  Invalidation drops the changed znode's domain AND
         its parent: an instance child landing under a service node
-        changes the parent's answers too.  Authority loss does NOT
-        flush — the front serves stale for ``stale_ttl`` seconds
-        (RFC 8767; new templates are already blocked by
+        changes the parent's answers too.  An entry the cache evicts
+        drops them the same way: its watch is forgotten, so no later
+        change to it would reach a template built from it.  Authority
+        loss does NOT flush — the front serves stale for ``stale_ttl``
+        seconds (RFC 8767; new templates are already blocked by
         :meth:`_cacheable`), and the *restored* event flushes instead,
         because the invalidations missed during the outage make every
         surviving template unprovable."""
@@ -804,9 +839,11 @@ class DnsFront:
 
         self._subscribed = zkcache
         zkcache.on("invalidated", on_invalidated)
+        zkcache.on("evicted", on_invalidated)
         zkcache.on("degraded", on_degraded)
         zkcache.on("restored", on_restored)
         self._unsubscribes.append(("invalidated", on_invalidated))
+        self._unsubscribes.append(("evicted", on_invalidated))
         self._unsubscribes.append(("degraded", on_degraded))
         self._unsubscribes.append(("restored", on_restored))
 
@@ -913,6 +950,7 @@ class DnsFront:
 
     async def _answer_miss(self, query: DnsQuery, reply, limit: int,
                            started: float) -> None:
+        fill = self.cache.fill_started(query.lname)
         try:
             resolution = await self._resolver(query.lname,
                                               QTYPE_NAMES[query.qtype])
@@ -925,8 +963,9 @@ class DnsFront:
                 rcode = RCODE_NOERROR
                 template = build_answer_template(
                     query.lname, query.qtype, resolution)
-            if self._cacheable():
-                self.cache.put((query.lname, query.qtype), template)
+            token, fill = fill, None
+            self.cache.fill_done(token, (query.lname, query.qtype),
+                                 template if self._cacheable() else None)
             reply(render_from_template(template, query, limit))
             self._count(query.qtype, rcode, started)
         except asyncio.CancelledError:
@@ -938,6 +977,9 @@ class DnsFront:
         except Exception:
             reply(build_error_response(query, RCODE_SERVFAIL))
             self._count(query.qtype, RCODE_SERVFAIL, started)
+        finally:
+            if fill is not None:
+                self.cache.fill_done(fill, (query.lname, query.qtype), None)
 
     def _cacheable(self) -> bool:
         # Only an authoritative (watch-armed) source can promise the

@@ -121,6 +121,8 @@ class ZKCache(EventEmitter):
 
     Events: ``invalidated`` (path, watch event) after an entry is
     dropped by a fired watch — the ``serve-view`` loop's refresh signal;
+    ``evicted`` (path) after an entry is dropped past ``max_entries``,
+    its watch forgotten, so that what was built from it must go too;
     ``degraded`` (reason) / ``restored`` () on authority transitions.
 
     Not thread-safe (asyncio single-loop, like the client itself).
@@ -401,6 +403,7 @@ class ZKCache(EventEmitter):
             self._zk.forget_watches(victim)
             self.stats["evictions"] += 1
             self._prune(victim)
+            self.emit("evicted", victim)
 
     # -- the resolver's read surface ----------------------------------------
 
