@@ -1006,8 +1006,9 @@ def srv_answer_bytes(domain: str, hostnames) -> int:
 
 def tier_config(zk_port: int, tmp: str, metrics_port: int, dns_port: int) -> dict:
     """etc/config.example.json's ``serve`` and ``cache`` blocks as written,
-    with the socket in ``tmp``, the DNS frontend on a free port, the
-    metrics listener on another, the child ZooKeeper and no chroot; the
+    with the socket in ``tmp``, the DNS frontend on ``dns_port`` (0: the
+    tier allocates one), the metrics listener on ``metrics_port``, the
+    child ZooKeeper and no chroot; the
     registration, adminIp and zookeeper tuning the loader reads with
     them."""
     with open(os.path.join(ROOT, "etc", "config.example.json")) as fh:
@@ -1278,11 +1279,13 @@ async def check_answers(sc, hosts: dict, doms, live_too: bool = True) -> None:
 class Tier(Daemon):
     """``zkcli serve-sharded -f tier.json`` over the ZooKeeper at
     ``zk_port``, with ``tier_config``'s file in ``tmp``, and the worker
-    pids it has been seen to run."""
+    pids it has been seen to run.  Its DNS port is 0 in the file
+    (docs/CONFIG.md: allocated once at tier start) and is read off
+    ``/status`` once the shards are up."""
 
     def __init__(self, zk_port: int, tmp: str) -> None:
-        self.metrics_port, self.dns_port = free_port(), free_port()
-        self.cfg = tier_config(zk_port, tmp, self.metrics_port, self.dns_port)
+        self.metrics_port, self.dns_port = free_port(), None
+        self.cfg = tier_config(zk_port, tmp, self.metrics_port, 0)
         self.cfg_path = write_json(os.path.join(tmp, "tier.json"), self.cfg)
         self.pids_seen = set()
         super().__init__(self.cfg_path, [
@@ -1311,7 +1314,9 @@ class Tier(Daemon):
         until the shards were up)."""
         st = await wait_until(lambda: self.up(SHARDS), "the tier to start")
         start_s = time.perf_counter() - self.t0
-        check(st["serve"]["dns"]["port"] == self.dns_port,
+        self.dns_port = st["serve"]["dns"]["port"]
+        check(isinstance(self.dns_port, int) and 0 < self.dns_port < 65536
+              and self.cfg["serve"]["dns"]["port"] == 0,
               f"dns {st['serve']['dns']}")
         proc = await asyncio.to_thread(zkcli, "status", "-f", self.cfg_path)
         check(proc.returncode == 0, f"zkcli status exited {proc.returncode}: "
@@ -1328,6 +1333,12 @@ class Tier(Daemon):
             check(argv[1:3] == ["-m", "registrar_tpu_torch.shard"],
                   f"worker {pid} runs {argv[:3]}")
         return st, start_s
+
+    def dns_bind(self) -> dict:
+        """The allocated DNS port and how many of its picks were taken
+        and made again, counted from the tier's log."""
+        return {"dns_port": self.dns_port, "dns_port_picks_retried": sum(
+            "picking another" in line for line in list(self.errors))}
 
     async def sigterm(self) -> float:
         """SIGTERM the tier: it must exit 0 and leave no worker behind.
@@ -1413,6 +1424,7 @@ async def phase_serve(port: int, where: dict) -> None:
             # 1. start
             tier = Tier(port, tmp)
             st, out["tier_start_s"] = await tier.started()
+            out.update(tier.dns_bind())
             cfg, cfg_path, dns_port = tier.cfg, tier.cfg_path, tier.dns_port
 
             # 2. unix-socket answers, cached and live
@@ -1789,6 +1801,7 @@ async def region_run(port: int, server_pid: int) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             tier = Tier(port, tmp)
             _st, out["tier_start_s"] = await tier.started()
+            out.update(tier.dns_bind())
 
             # every domain's answers over the unix socket, cached and live
             sc = await ShardClient(tier.cfg["serve"]["socketPath"]).connect()

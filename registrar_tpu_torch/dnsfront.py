@@ -60,6 +60,8 @@ the header flag masks disjoint.
 from __future__ import annotations
 
 import asyncio
+import errno
+import logging
 import socket
 import struct
 import time
@@ -67,6 +69,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from . import malformed
 from .metrics import DEFAULT_BUCKETS
+
+log = logging.getLogger("registrar_tpu_torch.dnsfront")
 
 # ---- protocol constants -----------------------------------------------------
 
@@ -139,6 +143,8 @@ QUESTION_PTR = b"\xc0\x0c"
 DEFAULT_UDP_PAYLOAD_MAX = 1232  # EDNS answer-size we advertise (no frag risk)
 DEFAULT_NEGATIVE_TTL = 5  # seconds; ~the cache's watch-delivery bound
 DEFAULT_STALE_TTL = 30  # seconds a degraded front may serve stale (RFC 8767)
+#: picks of a port-0 DNS port before the last EADDRINUSE is raised
+PORT_PICK_TRIES = 32
 
 #: Synthesized SOA timers (serial/refresh/retry/expire) for negative
 #: answers.  registrar has no zone file and no serial discipline — the
@@ -791,20 +797,52 @@ class DnsFront:
     # -- lifecycle ---------------------------------------------------------
 
     async def start(self) -> Tuple[str, int]:
-        loop = asyncio.get_running_loop()
-        reuse = hasattr(socket, "SO_REUSEPORT")
-        self._udp_transport, _ = await loop.create_datagram_endpoint(
-            lambda: _UdpProtocol(self),
-            local_addr=(self.host, self.port),
-            reuse_port=reuse or None,
-        )
-        self.port = self._udp_transport.get_extra_info("sockname")[1]
-        self._tcp_server = await asyncio.start_server(
-            self._serve_tcp, self.host, self.port,
-            reuse_port=reuse or None)
+        """Bind the UDP endpoint and the TCP listener on one port.  A
+        requested port of 0 is picked by :func:`allocate_port`, free
+        for both protocols, and picked again while a bind then finds it
+        taken, up to :data:`PORT_PICK_TRIES` times; a fixed port raises
+        at once.  A failed start leaves no socket bound."""
+        requested = self.port
+        for _ in range(PORT_PICK_TRIES):
+            port = requested or allocate_port(self.host)
+            try:
+                await self._bind(port)
+                break
+            except OSError as err:
+                if requested or err.errno != errno.EADDRINUSE:
+                    raise
+                taken = err
+                log.warning("dns port %d is taken (%s); picking another",
+                            port, err)
+        else:
+            raise taken
         if self._source is not None:
             self.attach_cache(self._source)
         return self.host, self.port
+
+    async def _bind(self, port: int) -> None:
+        """UDP on ``port``, then TCP on the number UDP got, both with
+        SO_REUSEPORT.  The UDP socket is bound by hand and handed to the
+        loop only once TCP is bound too, so a failed TCP bind closes it
+        before the error is raised."""
+        reuse = hasattr(socket, "SO_REUSEPORT")
+        loop = asyncio.get_running_loop()
+        family, _, _, _, addr = (await loop.getaddrinfo(
+            self.host, port, type=socket.SOCK_DGRAM))[0]
+        udp = socket.socket(family, socket.SOCK_DGRAM)
+        try:
+            if reuse:
+                udp.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            udp.bind(addr)
+            port = udp.getsockname()[1]
+            self._tcp_server = await asyncio.start_server(
+                self._serve_tcp, self.host, port, reuse_port=reuse or None)
+        except BaseException:
+            udp.close()
+            raise
+        self._udp_transport, _ = await loop.create_datagram_endpoint(
+            lambda: _UdpProtocol(self), sock=udp)
+        self.port = port
 
     def attach_cache(self, zkcache) -> None:
         """Subscribe the encode cache to the watch events that keep it
@@ -1055,16 +1093,54 @@ class _UdpProtocol(asyncio.DatagramProtocol):
         pass
 
 
+def reserve_port(host: str) -> socket.socket:
+    """A TCP socket bound with ``SO_REUSEPORT`` on a port that was free
+    for UDP and for TCP when it was picked.  It never listens, so it
+    takes no connection; while it is open the kernel gives the port to
+    no outgoing connection and to no socket without ``SO_REUSEPORT``,
+    and the workers' listeners still join it.
+
+    The picks bind without ``SO_REUSEPORT``: a UDP bind on port 0 that
+    sets it may land on a port that another reuseport socket of the
+    same user holds, and a TCP bind that sets it would join such a
+    socket.  So a plain TCP probe tests the UDP pick first and is
+    closed, and the reservation takes its place while the UDP pick is
+    still held.  A probe or the reservation that finds the port taken
+    on TCP (for example as an outgoing connection's local port) fails
+    with EADDRINUSE, and the pick is made again, up to
+    :data:`PORT_PICK_TRIES` times."""
+    for _ in range(PORT_PICK_TRIES):
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as udp:
+            udp.bind((host, 0))
+            port = udp.getsockname()[1]
+            tcp = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            try:
+                with socket.socket(socket.AF_INET,
+                                   socket.SOCK_STREAM) as probe:
+                    probe.bind((host, port))
+                if hasattr(socket, "SO_REUSEPORT"):
+                    tcp.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+                tcp.bind((host, port))
+            except OSError as err:
+                tcp.close()
+                if err.errno != errno.EADDRINUSE:
+                    raise
+                taken = err
+                log.warning("dns port %d is taken (%s); picking another",
+                            port, err)
+                continue
+        return tcp
+    raise taken
+
+
 def allocate_port(host: str) -> int:
-    """Resolve a configured port of 0 to a concrete free port, once,
-    before worker spawn: every worker must bind the SAME port for
-    SO_REUSEPORT fan-out, so the router picks it and passes the
-    concrete value in each worker's spec."""
-    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    """Resolve a configured port of 0 to a concrete port that was free
+    for UDP and for TCP at the moment of the pick (:func:`reserve_port`,
+    released at once).  The router does not release its pick: every
+    worker must bind the SAME port for SO_REUSEPORT fan-out, so it
+    holds :func:`reserve_port`'s socket until it stops."""
+    sock = reserve_port(host)
     try:
-        if hasattr(socket, "SO_REUSEPORT"):
-            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
-        sock.bind((host, 0))
         return sock.getsockname()[1]
     finally:
         sock.close()

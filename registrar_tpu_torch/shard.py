@@ -109,6 +109,7 @@ import json
 import logging
 import os
 import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -1335,10 +1336,17 @@ class ShardRouter(EventEmitter):
         #: None = no DNS sockets, byte-identical specs to a tier
         #: without DNS.
         self.dns = dict(dns) if dns else None
+        #: the TCP socket that keeps an allocated DNS port from any
+        #: outgoing connection until :meth:`stop`, so that a worker's
+        #: first bind and every respawn find it free (never listening,
+        #: so every connection lands on a worker).  None for a port the
+        #: operator configured: that port is the operator's.
+        self._dns_reservation: Optional[socket.socket] = None
         if self.dns and not self.dns.get("port"):
-            self.dns["port"] = dnsfront.allocate_port(
+            self._dns_reservation = dnsfront.reserve_port(
                 self.dns.get("host", "127.0.0.1")
             )
+            self.dns["port"] = self._dns_reservation.getsockname()[1]
         #: the router's own deliberate rejects (rate_limited lives here;
         #: worker reasons roll up from status polls + crash banking)
         self._sheds: Dict[str, int] = {r: 0 for r in SHED_REASONS}
@@ -1507,6 +1515,7 @@ class ShardRouter(EventEmitter):
             for h in started:
                 if isinstance(h, _WorkerHandle):
                     await self._retire_worker(h)
+            self._release_dns_port()
             raise failures[0]
         for handle in started:
             self._workers[handle.shard_id] = handle
@@ -1540,10 +1549,16 @@ class ShardRouter(EventEmitter):
         for handle in list(self._workers.values()):
             await self._retire_worker(handle)
         self._workers.clear()
+        self._release_dns_port()
         try:
             os.unlink(self.socket_path)
         except OSError:
             pass
+
+    def _release_dns_port(self) -> None:
+        if self._dns_reservation is not None:
+            self._dns_reservation.close()
+            self._dns_reservation = None
 
     async def __aenter__(self) -> "ShardRouter":
         return await self.start()

@@ -110,14 +110,14 @@ def world(tmp_path_factory):
 
     server = run(ZKServer().start())
     clients = run(_register_fleet(server))
-    metrics_port, dns_port = _free_port(), _free_port()
+    metrics_port = _free_port()
     tier_cfg = {
         "registration": {"domain": "tier.cross.example.us",
                          "type": "load_balancer"},
         "zookeeper": {"servers": [{"host": server.host, "port": server.port}]},
         "serve": {"shards": 2, "socketPath": str(tmp / "resolve.sock"),
                   "attachSpread": "any",
-                  "dns": {"host": "127.0.0.1", "port": dns_port}},
+                  "dns": {"host": "127.0.0.1", "port": 0}},
         "metrics": {"host": "127.0.0.1", "port": metrics_port},
     }
     tier_path = tmp / "tier.json"
@@ -144,6 +144,9 @@ def world(tmp_path_factory):
                 pass
             assert time.monotonic() < deadline, (tmp / "tier.log").read_text()
             time.sleep(0.1)
+        # the tier allocated its DNS port at start (serve.dns.port 0)
+        dns_port = snapshot["serve"]["dns"]["port"]
+        assert dns_port, snapshot["serve"]
         _Frozen.body = json.dumps(snapshot).encode()
         frozen = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _Frozen)
         threading.Thread(target=frozen.serve_forever, daemon=True).start()
